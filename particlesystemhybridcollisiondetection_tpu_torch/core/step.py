@@ -1,0 +1,730 @@
+"""Sorted spatial step and the persistent sorted episode runner.
+
+Port of the sorted pipeline of the JAX package's ``core/step.py``.  One
+step runs, in order: sort the particles on the Morton key of their
+travel-segment midpoint; look up each particle's ``(start, count)`` (the
+cells kernel, or a gather from ``cells2``); plan one candidate window per
+row of 128 sorted particles; run the window kernel (exact narrow phase,
+response and integration, fused); redo the lanes whose candidates did
+not fit their window exactly, in two phases (``_chunked_rescue``).  The
+response runs before integration and pre-compensates it with ``-g*dt``,
+as in the reference's frame loop (ParticleSys.cs:445-527).
+
+The JAX package decides its data-dependent branches on the device
+(``lax.cond``/``while_loop``).  Eager PyTorch reads those scalars back to
+the host (``.item()``); the branch sequence is the JAX package's, and
+every read is counted in ``HostSyncs``.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.core import vec
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+    ParticleState,
+    resolve_device,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops import narrow_phase as nphase
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
+    BLOCK,
+    LANE,
+    SUB,
+    _CODE_TABLE_MAX,
+    build_code_table,
+    build_window_tables,
+    cells_window_lookup,
+    window_collide_sorted,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
+    _morton_spread,
+    build_triangle_grid,
+    cell_index,
+    lookup_pos,
+    morton_key,
+    pack_grid,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops.integrate import integrate
+
+
+class HostSyncs:
+    """Counts the device scalars read back to the host (each read waits
+    for the device): the eager form of the JAX package's on-device
+    branches."""
+
+    def __init__(self):
+        self.count = 0
+
+    def read(self, t: torch.Tensor) -> int:
+        self.count += 1
+        return int(t.item())
+
+
+def spatial_collide_packed(
+    state: ParticleState,
+    packed,
+    meta,
+    num_groups: int,
+    group: int,
+    gravity: torch.Tensor,
+    dt: float,
+    backoff: float,
+    active: Optional[torch.Tensor] = None,
+    *,
+    syncs: HostSyncs,
+) -> ParticleState:
+    """Grid spatial collision via the packed planar layout: one [2, N]
+    cell gather + one row gather of the groups of candidates the densest
+    occupied cell needs (the phase-2 rescue path; ops.grid.PackedGrid)."""
+    pos, velo = state.pos, state.vel
+    n = pos.shape[-1]
+    dev = pos.device
+    speed2 = vec.dot(velo, velo)
+    dirn = vec.normalize(velo)
+    seg_len2 = speed2 * (dt * dt)
+
+    cid = cell_index(lookup_pos(pos, velo, dt), meta)
+    info = packed.cells[:, cid]  # [2, N]
+    row0 = info[0]
+    count = info[1]
+    max_row = packed.rows.shape[1] - 1
+
+    # adaptive trip count: the densest cell these particles occupy (at
+    # least one group, all masked invalid when every count is 0)
+    g_bound = max(1, min(syncs.read((count.max() + group - 1) // group),
+                         num_groups))
+    # all g_bound groups at once: candidate j = g * group + slot on axis
+    # 1 ([3, J, N]), particles on the last axis.  The first minimal t2
+    # over j is what the JAX package's per-group argmin + strict-< fold
+    # keeps.
+    g_idx = torch.arange(g_bound, dtype=torch.int32, device=dev)[:, None]
+    rows = packed.rows[:, torch.clamp(row0[None] + g_idx, 0, max_row)]
+    r9 = rows.reshape(group, 9, g_bound, n).permute(1, 2, 0, 3).reshape(
+        9, g_bound * group, n)
+    j = torch.arange(g_bound * group, dtype=torch.int32, device=dev)[:, None]
+    valid = j < count[None, :]  # [J, N]
+
+    hits = nphase.particle_vs_triangles_pre(
+        pos[:, None, :], dirn[:, None, :], seg_len2[None, :],
+        r9[0:3], r9[3:6], r9[6:9], state.radius[None, :],
+    )
+    hit_j = hits.hit & valid
+    t2_j = torch.where(hit_j, hits.t2, float("inf"))
+    k_best = torch.argmin(t2_j, dim=0)[None]  # [1, N], first minimum
+    best_t2 = torch.gather(t2_j, 0, k_best)[0]
+    take = best_t2 < float("inf")
+    best_t = torch.where(take, torch.gather(hits.t, 0, k_best)[0], float("inf"))
+    best_n = vec.where(
+        take, torch.gather(hits.normal, 1, k_best[None].expand(3, 1, n))[:, 0], 0.0
+    )
+    any_hit = hit_j.any(dim=0)
+
+    hit = any_hit & (best_t2 < float("inf")) & (speed2 != 0.0)
+    if active is not None:
+        hit = hit & active
+
+    new_pos, new_vel = nphase.spatial_response(
+        pos, velo, dirn, hit, best_t, best_n,
+        gravity, dt, state.radius, state.restitution, backoff,
+    )
+    return state._replace(
+        pos=new_pos, vel=new_vel,
+        collisions=state.collisions + hit.to(torch.int32),
+    )
+
+
+def _window_plan(cid_s, cells2, window: int, nb: int, active_s=None,
+                 demote=None):
+    """Per-row window plan with the (start, count) lookup as a gather
+    from the planar ``cells2`` table (the "gather" plan)."""
+    info = cells2[:, cid_s]  # [2, N]
+    count = info[1]
+    if active_s is not None:
+        count = torch.where(active_s, count, 0)
+    return _plan_tail(info[0], count, window, nb, demote=demote)
+
+
+def _plan_tail(start, count, window: int, nb: int, miss=None, demote=None):
+    """Window geometry: each row of 128 sorted particles gets its own
+    window of ``window`` pair rows starting at its smallest candidate
+    start (rounded down to 128).  Returns (rel, count, ws i32[nb, 8],
+    k_cap i32[nb], overflow bool[N], ovf_count): each particle's start
+    relative to its row's window, the per-block candidate bound, the
+    lanes whose candidates do not fit (redone by the rescue), and the
+    pre-zeroing counts (the phase-2 compaction order)."""
+    big = 1 << 30
+    sb = torch.where(count > 0, start, big).reshape(nb * SUB, LANE)
+    ws = sb.min(dim=1).values
+    ws = torch.where(ws == big, 0, ws)
+    ws = (ws // 128) * 128
+    rel = start - ws.repeat_interleave(LANE)
+    rel = torch.where(count > 0, rel, 0)
+    overflow = (count > 0) & ((rel < 0) | (rel + count > window))
+    if miss is not None:
+        overflow = overflow | miss
+    if demote is not None:
+        # dense-cell demotion: in the main kernel one dense cell would
+        # inflate its whole block's trip count; the rescue packs such
+        # lanes into their own blocks
+        overflow = overflow | (count > demote)
+    # overflow lanes are redone by the rescue, so the main kernel skips
+    # them (zeroed counts tighten k_cap); ws stays anchored to the
+    # pre-zeroing counts so the other lanes' rel values are unchanged
+    ovf_count = count
+    count = torch.where(overflow, 0, count)
+    k_cap = count.reshape(nb, BLOCK).max(dim=1).values
+    rel = torch.where(count > 0, rel, 0)
+    rel = torch.clamp(rel, 0, window - 1)
+    return rel, count, ws.reshape(nb, SUB), k_cap, overflow, ovf_count
+
+
+_CODE_WC = 512  # per-row code-window size
+
+
+def _window_plan_coded(key_s, ctab, window: int, nb: int, *,
+                       active_s=None, demote=None):
+    """_window_plan with the (start, count) lookup done by the cells
+    kernel: sorted particles' Morton codes are row-compact, so two
+    _CODE_WC-code windows per row (from the row minimum, and ending at
+    the row maximum) hold almost every key.  Lookup misses fold into the
+    overflow mask -> exact rescue."""
+    rows = key_s.reshape(nb * SUB, LANE)
+    lo = (rows.min(dim=1).values // 128) * 128
+    hi = torch.clamp(
+        ((rows.max(dim=1).values - _CODE_WC + 128) // 128) * 128, min=0
+    )
+    start, count = cells_window_lookup(key_s, lo, hi, ctab, wc=_CODE_WC)
+    miss = count < 0
+    count = torch.where(miss, 0, count)
+    if active_s is not None:
+        count = torch.where(active_s, count, 0)
+        miss = miss & active_s
+    return _plan_tail(start, count, window, nb, miss=miss, demote=demote)
+
+
+def _maybe_code_table(grid, meta, cells_lookup: str):
+    """Build the code-indexed cells table when the cells kernel is
+    requested ("kernel") or auto-enabled ("auto": the device is CUDA,
+    pair count under the 24-bit packed start, dims within the 10-bit
+    Morton range, table under its size cap)."""
+    pairs = int(grid.offsets[-1])
+    dx, dy, dz = (int(d) - 1 for d in meta.dims)
+    code_max = int(
+        np.int64(_morton_spread(np.int32(dx)))
+        | (np.int64(_morton_spread(np.int32(dy))) << 1)
+        | (np.int64(_morton_spread(np.int32(dz))) << 2)
+    )
+    fits = (
+        pairs < (1 << 24)
+        and max(meta.dims) <= 1024
+        and code_max + 1 + _CODE_WC + 128 <= _CODE_TABLE_MAX
+    )
+    if cells_lookup == "kernel":
+        use = True  # explicit request: build_code_table's checks bind
+    elif cells_lookup == "auto":
+        use = grid.offsets.device.type == "cuda" and fits
+    else:
+        use = False
+    return build_code_table(grid, meta, _CODE_WC) if use else None
+
+
+# Bounded-compaction buffer for the phase-1 rescue order
+# (_chunked_rescue(rescue_compact=True)); read at call time
+_COMPACT_CAP = 65536
+
+
+def _chunked_rescue(
+    kernel_out,
+    sorted_state,
+    overflow,
+    tables,
+    packed,
+    meta,
+    num_groups: int,
+    group: int,
+    gravity,
+    cfg: SimConfig,
+    m_cap: int,
+    *,
+    rescue_window: int,
+    key_s,
+    ovf_count,
+    syncs: HostSyncs,
+    kernel_chunk: int = 8192,
+    rescue_compact: bool = False,
+):
+    """Exact redo of the window-overflow lanes, in two phases.
+
+    Phase 1 (window kernel, ``kernel_chunk``-lane chunks): compact the
+    overflow lanes in CURRENT Morton-key order (``key_s``; pair rows are
+    in Morton cell order, so consecutive lanes cover a compact row
+    range), gather fresh (start, count) from ``cells2`` (this also
+    repairs cells-lookup misses), and rerun the same window kernel with
+    ``rescue_window``-row windows.  A chunk runs the kernel only when its
+    windows decide a majority of its lanes.
+
+    Phase 2 (packed path, ``m_cap``-lane chunks): lanes whose rescue
+    window still overflows, densest cells first.
+
+    Exact for any overflow count.  Chunk starts clamp to ``n - m`` like
+    ``lax.dynamic_slice``: the last chunk may overlap the one before and
+    recomputes those lanes from the same inputs.  Returns (pos_k, vel_k,
+    hit_k, n_over), n_over a host int.
+    """
+    pos_k, vel_k, hit_k = kernel_out
+    pos_s, vel_s, radius_s, restit_s = sorted_state
+    n = pos_s.shape[-1]
+    dev = pos_s.device
+    n_over = syncs.read(overflow.sum())
+    if n_over == 0:
+        return pos_k, vel_k, hit_k, 0
+    big = 1 << 30
+    still = overflow.clone()
+
+    # ---- phase 1: Morton-compacted kernel rescue ----
+    m1 = max(BLOCK, (min(kernel_chunk, n) // BLOCK) * BLOCK)
+    if rescue_compact and n >= 2 * _COMPACT_CAP and n_over <= _COMPACT_CAP:
+        ord1 = _compact_order(overflow, key_s, n_over, _COMPACT_CAP)
+    else:
+        ord1 = _phase1_order(overflow, key_s)
+    c = 0
+    while c * m1 < n_over:
+        s0 = min(c * m1, n - m1)
+        pick = ord1[s0:s0 + m1]
+        redo, (pos_c, vel_c, rad_c, res_c), (rel, cnt, ws, k_cap, unfit) = (
+            _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
+                          rescue_window)
+        )
+        n_redo = redo.sum()
+        n_unfit = unfit.sum()
+        if syncs.read(n_unfit * 2 < n_redo):
+            pos_o, vel_o, hit_o = window_collide_sorted(
+                pos_c, vel_c, rad_c, res_c, rel, cnt, ws, k_cap, tables,
+                w=rescue_window, k_static=meta.max_tris_per_cell,
+                gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
+            )
+            decided = redo & ~unfit
+            pos_k[:, pick] = torch.where(decided[None], pos_o, pos_k[:, pick])
+            vel_k[:, pick] = torch.where(decided[None], vel_o, vel_k[:, pick])
+            hit_k[pick] = torch.where(decided, hit_o, hit_k[pick])
+            still[pick] = redo & ~decided
+        else:
+            # every redo lane stays in ``still`` for phase 2
+            still[pick] = redo
+        c += 1
+
+    # ---- phase 2: packed path on whatever is left ----
+    n_still = syncs.read(still.sum())
+    if n_still == 0:
+        return pos_k, vel_k, hit_k, n_over
+    m2 = max(BLOCK, (min(m_cap, n) // BLOCK) * BLOCK)
+    ord2 = torch.argsort(torch.where(still, -ovf_count, big), stable=True)
+    c = 0
+    while c * m2 < n_still:
+        s0 = min(c * m2, n - m2)
+        pick = ord2[s0:s0 + m2]
+        redo = still[pick]
+        pos_c = pos_s[:, pick]
+        vel_c = vel_s[:, pick]
+        # sentinel positions for non-redo lanes keep their (dense) cells
+        # out of the packed pass's adaptive group bound
+        mini = ParticleState(
+            pos=torch.where(redo[None], pos_c, 1.0e38),
+            vel=vel_c,
+            collisions=torch.zeros((m2,), dtype=torch.int32, device=dev),
+            radius=radius_s[pick],
+            restitution=restit_s[pick],
+        )
+        mini = spatial_collide_packed(
+            mini, packed, meta, num_groups, group, gravity, cfg.dt,
+            cfg.backoff, active=redo, syncs=syncs,
+        )
+        fb_pos, fb_vel = integrate(mini.pos, mini.vel, gravity, cfg.dt)
+        pos_k[:, pick] = torch.where(redo[None], fb_pos, pos_k[:, pick])
+        vel_k[:, pick] = torch.where(redo[None], fb_vel, vel_k[:, pick])
+        hit_k[pick] = torch.where(redo, mini.collisions, hit_k[pick])
+        c += 1
+    return pos_k, vel_k, hit_k, n_over
+
+
+def _phase1_order(overflow, key_s):
+    """Phase-1 rescue order: overflow lanes by current Morton key (ties
+    by lane), then the other lanes."""
+    return torch.argsort(torch.where(overflow, key_s, 1 << 30), stable=True)
+
+
+def _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
+                  rescue_window: int):
+    """Inputs of one phase-1 rescue chunk (lanes ``pick`` of the sorted
+    state): (redo mask, chunk state, window plan with ``unfit``)."""
+    pos_s, vel_s, radius_s, restit_s = sorted_state
+    redo = overflow[pick]
+    pos_c = pos_s[:, pick]
+    vel_c = vel_s[:, pick]
+    # fresh (start, count): midpoint lookup, as in the main plan
+    info = tables.cells2[:, cell_index(lookup_pos(pos_c, vel_c, cfg.dt), meta)]
+    count_c = torch.where(redo, info[1], 0)  # padding lanes inert
+    rel, cnt, ws, k_cap, unfit, _ = _plan_tail(
+        info[0], count_c, rescue_window, pick.shape[0] // BLOCK
+    )
+    return (redo, (pos_c, vel_c, radius_s[pick], restit_s[pick]),
+            (rel, cnt, ws, k_cap, unfit))
+
+
+def _compact_order(overflow, key_s, n_over: int, cap: int):
+    """The phase-1 order without a full-N argsort: the overflow lanes (at
+    most ``cap``) sorted by current Morton key, ties by lane (identical
+    to the argsort restricted to overflow lanes), followed by
+    non-overflow lanes whose chunk writes are no-ops."""
+    n = overflow.shape[0]
+    dev = overflow.device
+    lanes = torch.arange(n, dtype=torch.int32, device=dev)
+    ovf_i = overflow.to(torch.int32)
+    rank = torch.cumsum(ovf_i, 0) - 1
+    sel = overflow & (rank < cap)
+    keys_c = torch.full((cap,), 1 << 30, dtype=key_s.dtype, device=dev)
+    keys_c[rank[sel].long()] = key_s[sel]
+    idx_c = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    idx_c[rank[sel].long()] = lanes[sel]
+    _, o = torch.sort(keys_c, stable=True)
+    ord_c = idx_c[o]
+    rank_n = torch.cumsum(1 - ovf_i, 0) - 1
+    sel_n = (~overflow) & (rank_n < cap)
+    pad_c = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    pad_c[rank_n[sel_n].long()] = lanes[sel_n]
+    pos_in = torch.arange(n, device=dev)
+    tail = pad_c[torch.clamp(pos_in - n_over, min=0) % cap]
+    return torch.where(
+        pos_in < n_over, ord_c[torch.clamp(pos_in, max=cap - 1)], tail
+    ).long()
+
+
+def check_speed_cover(cfg: SimConfig, num_steps: int | None = None,
+                      state: ParticleState | None = None,
+                      strict: bool = False) -> float:
+    """Binning-invariant guard: warn (or, ``strict``, raise) when an
+    episode could outrun the midpoint swept lookup.  A particle is
+    covered while ``radius + |v|*dt/2 <= expand``; the episode speed
+    bound is ``|v_entry| + g*dt*num_steps`` (spawn at rest and
+    restitution <= 1).  ``state`` adds its measured max speed (one device
+    read).  Returns the speed bound (u/s)."""
+    g = float(np.linalg.norm(np.asarray(cfg.gravity, dtype=np.float32)))
+    steps = cfg.lifetime_steps if num_steps is None else num_steps
+    v_entry = 0.0
+    if state is not None:
+        v_entry = float(torch.sqrt(torch.max(torch.sum(state.vel * state.vel, 0))))
+    v_bound = v_entry + g * cfg.dt * steps
+    covered = 2.0 * (cfg.grid.expand - cfg.particle_radius) / cfg.dt
+    if v_bound > covered:
+        msg = (
+            f"episode speed bound {v_bound:.1f} u/s exceeds the midpoint "
+            f"swept-lookup cover 2*(expand - radius)/dt = {covered:.1f} "
+            f"u/s (expand={cfg.grid.expand}, radius={cfg.particle_radius}, "
+            f"dt={cfg.dt}, steps={steps}, entry speed {v_entry:.1f}); "
+            "raise grid.expand or shorten the episode -- particles above "
+            "the cover speed silently miss binned triangles (tunneling)"
+        )
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg)
+    return v_bound
+
+
+def _auto_demote(demote, meta) -> int | None:
+    """Dense-cell demotion threshold: "auto" is 192 on scenes whose
+    densest cell holds more than 255 candidates (dragon class), else
+    off."""
+    if demote != "auto":
+        return demote
+    if meta.max_tris_per_cell > 255:
+        return 192
+    return None
+
+
+def _auto_window(window, meta, device: torch.device) -> int:
+    """Row window size: the densest cell plus one 128-row segment,
+    within [256, 2048]; on CUDA at least 1024 rows (the JAX package's
+    accelerator floor: the window absorbs drift between lazy re-sorts).
+    CPU keeps the small window, as the JAX package does off the TPU."""
+    if window is not None:
+        return window
+    want = ((meta.max_tris_per_cell + 127) // 128) * 128 + 128
+    w = max(256, min(2048, want))
+    if device.type == "cuda":
+        w = max(w, 1024)
+    if meta.max_tris_per_cell > w:
+        warnings.warn(
+            f"grid cells hold up to {meta.max_tris_per_cell} candidates, "
+            f"above the {w}-row block window; particles in those cells are "
+            "handled by the exact fallback (capacity-bounded)"
+        )
+    return w
+
+
+class _Sorted(NamedTuple):
+    """Scene tables and plan constants shared by the step and runner."""
+
+    cfg: SimConfig
+    meta: object
+    window: int
+    rescue_window: int
+    demote: Optional[int]
+    tables: object
+    ctab: object
+    packed: object
+    num_groups: int
+    group: int
+    gravity: torch.Tensor
+    m_cap: int
+
+
+def _build_sorted(triangles, cfg, *, window, fallback_capacity, cells_lookup,
+                  dense_demote, device) -> _Sorted:
+    dev = resolve_device(device)
+    grid, meta = build_triangle_grid(triangles, cfg.grid, device=dev)
+    window = _auto_window(window, meta, dev)
+    # rescue window: covers the densest cell (the rescue re-windows
+    # COMPACTED overflow lanes); never below the main window
+    rescue_window = max(window, _auto_window(None, meta, dev), 2048)
+    tables = build_window_tables(grid, meta, max(window, rescue_window))
+    group = 8
+    packed, num_groups = pack_grid(grid, meta, group=group)
+    return _Sorted(
+        cfg=cfg, meta=meta, window=window, rescue_window=rescue_window,
+        demote=_auto_demote(dense_demote, meta), tables=tables,
+        ctab=_maybe_code_table(grid, meta, cells_lookup), packed=packed,
+        num_groups=num_groups, group=group,
+        gravity=torch.tensor(cfg.gravity, dtype=torch.float32, device=dev),
+        m_cap=fallback_capacity,
+    )
+
+
+def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
+                    syncs: HostSyncs, *, rescue_chunk: int = 8192,
+                    rescue_compact: bool = False):
+    """Plan + window kernel + rescue on particles in (approximately)
+    sorted order; ``key_s`` is their current Morton key.  Returns
+    (pos', vel', hit i32[N], n_over) in the same order."""
+    cfg = sp.cfg
+    n = pos_s.shape[-1]
+    if n % BLOCK:
+        raise ValueError(f"the sorted pipeline needs N % {BLOCK} == 0 (got "
+                         f"{n}); spawn with pad_multiple={BLOCK}")
+    nb = n // BLOCK
+    if sp.ctab is not None:
+        rel, count, ws, k_cap, overflow, ovf_count = _window_plan_coded(
+            key_s, sp.ctab, sp.window, nb, demote=sp.demote
+        )
+    else:
+        cid_s = cell_index(lookup_pos(pos_s, vel_s, cfg.dt), sp.meta)
+        rel, count, ws, k_cap, overflow, ovf_count = _window_plan(
+            cid_s, sp.tables.cells2, sp.window, nb, demote=sp.demote
+        )
+    kernel_out = window_collide_sorted(
+        pos_s, vel_s, radius_s, restit_s, rel, count, ws, k_cap, sp.tables,
+        w=sp.window, k_static=sp.meta.max_tris_per_cell,
+        gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
+    )
+    return _chunked_rescue(
+        kernel_out, (pos_s, vel_s, radius_s, restit_s), overflow, sp.tables,
+        sp.packed, sp.meta, sp.num_groups, sp.group, sp.gravity, cfg,
+        sp.m_cap, rescue_window=sp.rescue_window,
+        key_s=key_s, ovf_count=ovf_count, syncs=syncs,
+        kernel_chunk=rescue_chunk, rescue_compact=rescue_compact,
+    )
+
+
+def _refuse(mesh=None, camera=None):
+    if camera is not None:
+        raise NotImplementedError(
+            "hybrid (camera=) is not ported yet: ROADMAP.md queue A6")
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device (mesh=) is not ported yet: ROADMAP.md queue A9")
+
+
+def make_spatial_step_sorted(
+    triangles,
+    cfg: SimConfig,
+    *,
+    window: int | None = None,
+    fallback_capacity: int = 1024,
+    with_stats: bool = False,
+    mesh=None,
+    cells_lookup: str = "auto",
+    dense_demote: "int | None | str" = "auto",
+    device="cuda",
+):
+    """Spatial method via the sorted window pipeline: one step per call,
+    state in and out in the caller's particle order.
+
+    ``with_stats``: return ``(state, {"window_overflow": int})``.
+    ``cells_lookup``: "kernel" (cells kernel B2), "gather" (``cells2``
+    gather) or "auto" (kernel on CUDA when the grid fits the code table).
+    The step's ``syncs`` attribute counts its host reads.
+    """
+    _refuse(mesh=mesh)
+    sp = _build_sorted(
+        triangles, cfg, window=window, fallback_capacity=fallback_capacity,
+        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+    )
+    syncs = HostSyncs()
+
+    def step(state: ParticleState):
+        pos, vel = state.pos, state.vel
+        key = morton_key(lookup_pos(pos, vel, cfg.dt), sp.meta)
+        key_s, perm = torch.sort(key, stable=True)
+        rows = torch.cat(
+            [pos, vel, state.radius[None], state.restitution[None]], dim=0
+        )[:, perm]
+        pos_k, vel_k, hit_k, n_over = _collide_sorted(
+            sp, rows[0:3], rows[3:6], rows[6], rows[7], key_s, syncs
+        )
+        # unsort back to the caller's particle order
+        new_pos = torch.empty_like(pos_k)
+        new_vel = torch.empty_like(vel_k)
+        hits = torch.empty_like(hit_k)
+        new_pos[:, perm] = pos_k
+        new_vel[:, perm] = vel_k
+        hits[perm] = hit_k
+        out = state._replace(
+            pos=new_pos, vel=new_vel, collisions=state.collisions + hits
+        )
+        return (out, {"window_overflow": n_over}) if with_stats else out
+
+    step.syncs = syncs
+    return step
+
+
+class SortedEpisodeRunner:
+    """Episode runner with PERSISTENT sorted order (see
+    make_sorted_episode_runner).  ``runner(state, num_steps)`` returns
+    the state in the original particle order; ``syncs.count`` and
+    ``steps`` count host reads and steps over all calls."""
+
+    def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
+                 rescue_chunk: int, rescue_compact: bool):
+        if resort_every != "auto" and (
+                not isinstance(resort_every, int) or resort_every < 1):
+            raise ValueError(f"resort_every must be a positive int or "
+                             f"'auto', got {resort_every!r}")
+        self.sp = sp
+        self.resort_every = resort_every
+        self.resort_threshold = resort_threshold
+        self.rescue_chunk = rescue_chunk
+        self.rescue_compact = rescue_compact
+        self.syncs = HostSyncs()
+        self.steps = 0
+
+    def _collide(self, rows8, key_s):
+        return _collide_sorted(
+            self.sp, rows8[0:3], rows8[3:6], rows8[6], rows8[7], key_s,
+            self.syncs, rescue_chunk=self.rescue_chunk,
+            rescue_compact=self.rescue_compact,
+        )
+
+    def _step(self, rows8, aux, do_sort: bool):
+        """One step on the carried rows; with ``do_sort`` re-sort first,
+        else keep the current (drifted) order -- sortedness is a locality
+        hint, the rescue redoes whatever no longer fits its window."""
+        dt = self.sp.cfg.dt
+        key = morton_key(lookup_pos(rows8[0:3], rows8[3:6], dt), self.sp.meta)
+        if do_sort:
+            key, perm = torch.sort(key, stable=True)
+            rows8 = rows8[:, perm]
+            aux = aux[:, perm]
+        pos_k, vel_k, hit_k, n_over = self._collide(rows8, key)
+        out8 = torch.cat([pos_k, vel_k, rows8[6:8]], dim=0)
+        out_aux = torch.stack([aux[0] + hit_k, aux[1]])
+        return out8, out_aux, n_over
+
+    def __call__(self, state: ParticleState, num_steps: int,
+                 with_stats: bool = False):
+        """``with_stats=True``: also return the per-step window-overflow
+        counts (host ints)."""
+        n = state.pos.shape[-1]
+        if state.pos.device != self.sp.gravity.device:
+            raise ValueError(f"state is on {state.pos.device}, the runner's "
+                             f"tables on {self.sp.gravity.device}")
+        if n % BLOCK:
+            raise ValueError(f"N={n} is not a multiple of {BLOCK}")
+        if os.environ.get("PSYS_SPEED_GUARD", "0") not in ("", "0"):
+            check_speed_cover(self.sp.cfg, num_steps=num_steps, state=state,
+                              strict=True)
+        # carried: rows8 f32[8, N] = pos3 vel3 radius restitution;
+        # aux i32[2, N] = (collisions, original ids)
+        rows8 = torch.cat([state.pos, state.vel, state.radius[None],
+                           state.restitution[None]], dim=0)
+        aux = torch.stack([
+            state.collisions,
+            torch.arange(n, dtype=torch.int32, device=state.pos.device),
+        ])
+        overflows = []
+        # "auto": re-sort when overflow exceeds the overflow measured
+        # right after the most recent sort by resort_threshold (step 0
+        # establishes the order)
+        do_sort, base = True, 0
+        for i in range(num_steps):
+            if self.resort_every != "auto":
+                do_sort = i % self.resort_every == 0
+            rows8, aux, n_over = self._step(rows8, aux, do_sort)
+            if self.resort_every == "auto":
+                base = n_over if do_sort else base
+                do_sort = n_over > base + self.resort_threshold
+            overflows.append(n_over)
+        self.steps += num_steps
+        # restore the original order once
+        ids = aux[1].long()
+        out8 = torch.empty_like(rows8)
+        out_aux = torch.empty_like(aux)
+        out8[:, ids] = rows8
+        out_aux[:, ids] = aux
+        out = state._replace(pos=out8[0:3], vel=out8[3:6], collisions=out_aux[0])
+        return (out, overflows) if with_stats else out
+
+
+def make_sorted_episode_runner(
+    triangles,
+    cfg: SimConfig,
+    *,
+    window: int | None = None,
+    fallback_capacity: int = 1024,
+    resort_every: "int | str" = 1,
+    camera=None,
+    mesh=None,
+    cells_lookup: str = "auto",
+    dense_demote: "int | None | str" = "auto",
+    rescue_chunk: int = 8192,
+    resort_threshold: int = 8192,
+    rescue_compact: bool = False,
+    device="cuda",
+) -> SortedEpisodeRunner:
+    """Episode runner with PERSISTENT sorted order: the state stays in
+    each step's sorted order (original ids carried as a payload row) and
+    the original order is restored once per call.  Semantics identical to
+    repeated ``make_spatial_step_sorted`` steps.
+
+    ``resort_every=k``: re-sort every k-th step (the rescue keeps steps
+    in between exact).  ``"auto"``: re-sort when the previous step's
+    overflow exceeds the overflow measured right after the most recent
+    sort by ``resort_threshold``.  ``rescue_chunk``: phase-1 rescue
+    chunk (lanes).  ``rescue_compact``: build the phase-1 order by
+    bounded compaction instead of a full-N argsort (identical order).
+
+    ``camera`` (hybrid) and ``mesh`` (multi-device) are not ported yet and
+    raise NotImplementedError.
+    """
+    _refuse(mesh=mesh, camera=camera)
+    check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
+    sp = _build_sorted(
+        triangles, cfg, window=window, fallback_capacity=fallback_capacity,
+        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+    )
+    return SortedEpisodeRunner(sp, resort_every, resort_threshold,
+                               rescue_chunk, rescue_compact)
