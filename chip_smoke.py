@@ -5,17 +5,26 @@
 
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
-     versions, and build both CUDA kernels from ops/cuda/csrc;
-  2. drive the main path: the persistent sorted episode runner of the
-     spatial method on DragonScene at 1,048,576 particles (128^2 x 64
+     versions, and build the three CUDA kernels from ops/cuda/csrc;
+  2. drive the spatial main path: the persistent sorted episode runner of
+     the spatial method on DragonScene at 1,048,576 particles (128^2 x 64
      layers), cells lookup "kernel", resort_every "auto", 700 steps from
      spawn; check no NaN on active lanes, sentinels intact, collisions > 0
      and both kernels launched (launch counters reset just before);
-  3. on the state at step 650, hold each kernel against its plain PyTorch
-     version at the main path's shapes (cells lookup; window kernel at the
-     main window and on the first phase-1 rescue chunk);
-  4. time each kernel and its plain version (CUDA events, median of 20)
-     and print the kernel table as one JSON line.
+  3. on the state at step 650, hold each of its kernels against its plain
+     PyTorch version at the main path's shapes (cells lookup; window
+     kernel at the main window and on the first phase-1 rescue chunk);
+  4. time each and its plain version (CUDA events, median of 20);
+  5. drive the particle-particle main path (``drive_p2p``): 1,000,000
+     particles in the 160 x 80 x 160 gravity box of bench/configs.py
+     config 4, 200 steps of make_p2p_step (variant "auto", which must
+     resolve to "kernel") and 50 steps of make_p2p_episode_runner, launch
+     counters reset just before each; check every lane finite and inside
+     the box, contacts > 0, one kernel launch per step; on the state at
+     step 100 hold the p2p window kernel against its plain version on
+     every lane (window 512, and 128 where lanes overflow) and
+     p2p_collide_window against p2p_collide_sorted; time the kernel;
+  6. print the kernel table as one JSON line.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
 """
@@ -43,6 +52,19 @@ WINDOW_OPS_PER_LANE = 100
 # this is a fault
 RTOL, ATOL = 1e-6, 1e-5
 JAX_KERNELS = "particlesystemhybridcollisiondetection_tpu/ops/pallas/window_kernel.py"
+JAX_P2P_KERNEL = "particlesystemhybridcollisiondetection_tpu/ops/pallas/p2p_window_kernel.py"
+PORT_CSRC = "particlesystemhybridcollisiondetection_tpu_torch/ops/cuda/csrc/"
+
+# the particle-particle path: bench/configs.py config 4
+P2P_N = 1_000_000
+P2P_BOX = ((0.0, 0.0, 0.0), (160.0, 80.0, 160.0))
+P2P_STEPS, P2P_SNAP_STEP, P2P_RUNNER_STEPS = 200, 100, 50
+P2P_SMALL_WINDOW = 128  # small enough that lanes overflow their window
+# float operations of the p2p window kernel (csrc/p2p_window_kernel.cu),
+# counted as above: per candidate, and per lane outside the loop (the
+# mass and the six final adds)
+P2P_OPS_PER_CANDIDATE = 53
+P2P_OPS_PER_LANE = 8
 
 
 def card_line() -> str:
@@ -65,6 +87,197 @@ def median_ms(torch, fn) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return (times[REPS // 2 - 1] + times[REPS // 2]) / 2.0
+
+
+def lane_diff(torch, a, b) -> int:
+    """Lanes (last axis) on which two tensors differ anywhere."""
+    ne = a != b
+    return int((ne.any(0) if ne.dim() > 1 else ne).sum())
+
+
+def drive_p2p(torch, card: str) -> dict:
+    """Phase 5: the particle-particle path at full width.  Returns the
+    kernel-table entry of the p2p window kernel."""
+    from particlesystemhybridcollisiondetection_tpu_torch.bench.configs import _box_state
+    from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as p2ps
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        p2p_window_kernel as pk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    name = "p2p_window_collide_sorted"
+    lo, hi = P2P_BOX
+    cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
+    state0 = _box_state(P2P_N, lo, hi, 0.4, 0.3, seed=0)
+    step = S.make_p2p_step(lo, hi, cfg, capacity=8, variant="auto", with_stats=True)
+    if step.variant != "kernel":
+        raise RuntimeError(f'variant "auto" chose {step.variant!r}, not "kernel"')
+    runner = S.make_p2p_episode_runner(lo, hi, cfg, capacity=8)
+    meta = runner.meta
+    window = runner.window
+    n = P2P_N
+    n_k = -(-n // pk.BLOCK) * pk.BLOCK
+    print(f"[{card}] p2p box {hi}, particle grid dims {meta.dims} "
+          f"({meta.num_cells} cells), {n} particles in {n_k} lanes, window {window}")
+
+    def check(tag, s):
+        bad = int((~torch.isfinite(s.pos).all(0)).sum() + (~torch.isfinite(s.vel).all(0)).sum())
+        if bad:
+            raise RuntimeError(f"p2p {tag}: {bad} lanes hold NaN/inf")
+        lo_t = torch.tensor(lo, device=s.pos.device)[:, None] - s.radius[None]
+        hi_t = torch.tensor(hi, device=s.pos.device)[:, None] + s.radius[None]
+        out = int(((s.pos < lo_t) | (s.pos > hi_t)).any(0).sum())
+        if out:
+            raise RuntimeError(f"p2p {tag}: {out} particles left the box")
+        contacts = int(s.collisions.sum())
+        if contacts <= 0:
+            raise RuntimeError(f"p2p {tag}: no contacts")
+        return contacts
+
+    def stats(v):
+        return f"min {min(v)} median {sorted(v)[len(v) // 2]} max {max(v)}"
+
+    # ---- the step path: 200 steps, snapshot at step 100 ----
+    pk.reset_launches()
+    s, ovf, seg_ms = state0, [], []
+    snap = None
+    for upto in (20, P2P_SNAP_STEP, P2P_STEPS):
+        fence(s.pos)
+        t0 = time.perf_counter()
+        for _ in range(upto - len(ovf)):
+            s, st = step(s)
+            ovf.append(int(st["cell_overflow"]))
+        fence(s.pos)
+        seg_ms.append((time.perf_counter() - t0) * 1000.0)
+        if upto == P2P_SNAP_STEP:
+            snap = s
+    step_launches = pk.LAUNCHES[name]
+    contacts = check("step path", s)
+    print(f"[{card}] p2p step path (variant {step.variant}), {P2P_STEPS} steps at "
+          f"{n} particles: steps 1-20 {seg_ms[0] / 20:.3f} ms/step, steps 21-"
+          f"{P2P_STEPS} {(seg_ms[1] + seg_ms[2]) / (P2P_STEPS - 20):.3f} ms/step; "
+          f"host reads {step.syncs.count / P2P_STEPS:.2f}/step; cell_overflow "
+          f"(lanes redone by the fallback) {stats(ovf)}; contacts {contacts}; "
+          f"launches {step_launches}")
+    if step_launches != P2P_STEPS:
+        raise RuntimeError(f"p2p kernel launched {step_launches} times in "
+                           f"{P2P_STEPS} steps")
+
+    # ---- the persistent runner: 50 steps from the same state ----
+    pk.reset_launches()
+    fence(state0.pos)
+    t0 = time.perf_counter()
+    r, r_ovf = runner(state0, P2P_RUNNER_STEPS, with_stats=True)
+    fence(r.pos)
+    runner_ms = (time.perf_counter() - t0) * 1000.0 / P2P_RUNNER_STEPS
+    runner_launches = pk.LAUNCHES[name]
+    r_contacts = check("runner", r)
+    print(f"[{card}] p2p episode runner, {P2P_RUNNER_STEPS} steps: {runner_ms:.3f} "
+          f"ms/step; host reads {runner.syncs.count / P2P_RUNNER_STEPS:.2f}/step; "
+          f"cell_overflow {stats(r_ovf)}; contacts {r_contacts}; launches "
+          f"{runner_launches}")
+    if runner_launches != P2P_RUNNER_STEPS:
+        raise RuntimeError(f"p2p kernel launched {runner_launches} times in "
+                           f"{P2P_RUNNER_STEPS} runner steps")
+
+    # ---- the kernel against its plain version, state at step 100 ----
+    dev = snap.pos.device
+    cid_key = torch.cat([
+        p2ps._cell_key(snap.pos, meta, active_mask(snap)),
+        torch.full((n_k - n,), meta.num_cells, dtype=torch.int32, device=dev)])
+    rows = torch.cat([p2ps._state_rows(snap), p2ps._pad_columns(n_k - n, dev)], dim=1)
+    perm, starts, cnt = p2ps._sorted_runs(cid_key, meta)
+    rows_s = rows[:, perm]
+    plans, err = {}, 0.0
+    for w in (window, P2P_SMALL_WINDOW):
+        rel, ws, k_cap, overflow = p2ps._window_geometry(starts, cnt, w)
+        rows_pad = torch.cat([rows_s, p2ps._pad_columns(w, dev)], dim=1)
+        args = (rows_s[0:3], rows_s[3:6], rows_s[6], rows_s[7], rows_pad, rel,
+                cnt, ws, k_cap)
+        plans[w] = args
+        pk_, vk, nk = pk.p2p_window_collide_sorted(*args, w=w, beta=0.5)
+        pp, vp, npl = pk.p2p_window_collide_sorted_plain(*args, w=w, beta=0.5)
+        torch.cuda.synchronize()
+        bad_n, bad_p, bad_v = (lane_diff(torch, nk, npl), lane_diff(torch, pk_, pp),
+                               lane_diff(torch, vk, vp))
+        real = torch.abs(rows_s[0]) < 5e37
+        w_err = max(float(torch.abs(pk_ - pp)[:, real].max()),
+                    float(torch.abs(vk - vp).max()))
+        err = max(err, w_err)
+        pad = perm >= n
+        pads_inert = bool((nk[pad] == 0).all() and (vk[:, pad] == 0).all()
+                          and (pk_[:, pad] == 1e38).all())
+        print(f"[{card}] B3 p2p window kernel (w={w}, N={n_k}) vs plain on every "
+              f"lane: ncon differs on {bad_n} lanes, pos on {bad_p}, vel on "
+              f"{bad_v}, max |diff| {w_err:.3e}; contacts {int(nk.sum())}; "
+              f"overflow lanes {int(overflow.sum())}; {int(pad.sum())} pad "
+              f"columns inert: {pads_inert}")
+        if bad_n or bad_p or bad_v:
+            raise RuntimeError(f"p2p window kernel (w={w}) disagrees with its plain version")
+        if not pads_inert or int(pad.sum()) != n_k - n:
+            raise RuntimeError("p2p pad columns moved or collided")
+        if w == P2P_SMALL_WINDOW and not bool(overflow.any()):
+            raise RuntimeError(f"no lane overflows a window of {w}")
+
+    # ---- p2p_collide_window (kernel + fallback) against p2p_collide_sorted ----
+    act = active_mask(snap)
+    ref, _ = p2ps.p2p_collide_sorted(snap, meta, active=act)
+    for w in (window, P2P_SMALL_WINDOW):
+        t0 = time.perf_counter()
+        out, n_over = p2ps.p2p_collide_window(snap, meta, active=act, window=w)
+        torch.cuda.synchronize()
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        bad_c = lane_diff(torch, out.collisions, ref.collisions)
+        far = int((~(torch.isclose(out.pos, ref.pos, rtol=1e-5, atol=1e-5).all(0)
+                     & torch.isclose(out.vel, ref.vel, rtol=1e-4, atol=1e-5).all(0))).sum())
+        print(f"[{card}] p2p_collide_window (w={w}) vs p2p_collide_sorted: "
+              f"{n_over} lanes redone by the fallback, counts differ on {bad_c} "
+              f"lanes, pos (rtol=1e-5 atol=1e-5) / vel (rtol=1e-4 atol=1e-5) "
+              f"outside on {far} lanes; {dt_ms:.1f} ms")
+        if bad_c or far:
+            raise RuntimeError(f"p2p_collide_window (w={w}) disagrees with p2p_collide_sorted")
+
+    # ---- time and bound at the main path's shapes (w = 512) ----
+    args = plans[window]
+    ms = median_ms(torch, lambda: pk.p2p_window_collide_sorted(*args, w=window, beta=0.5))
+    plain_ms = median_ms(
+        torch, lambda: pk.p2p_window_collide_sorted_plain(*args, w=window, beta=0.5))
+    rows_pad, rel, cnt, ws, k_cap = args[4:]
+    nb = n_k // pk.BLOCK
+    ws_l = ws.permute(1, 0, 2).reshape(pk.N_GROUPS, nb * pk.SUB).repeat_interleave(
+        pk.LANE, dim=1)
+    bound = torch.minimum(torch.minimum(
+        cnt, k_cap.t().repeat_interleave(pk.BLOCK, dim=1)), window - rel)
+    n_cand = int(bound.sum())
+    # distinct candidate columns: the union of the intervals [col0, col0 + bound)
+    col0 = (ws_l + rel).long()
+    live = bound > 0
+    diff = torch.zeros(rows_pad.shape[1] + 1, dtype=torch.int32, device=dev)
+    one = torch.ones(int(live.sum()), dtype=torch.int32, device=dev)
+    diff.index_add_(0, col0[live], one)
+    diff.index_add_(0, (col0 + bound)[live], -one)
+    n_cols = int((torch.cumsum(diff, 0) > 0).sum())
+    # each lane's pos/vel/radius/restitution (32 B), rel and cnt (72 B),
+    # ws and k_cap, every distinct candidate column once (32 B), out 28 B
+    n_bytes = n_k * (32 + 72) + 4 * ws.numel() + 4 * k_cap.numel() \
+        + 32 * n_cols + 28 * n_k
+    n_ops = P2P_OPS_PER_CANDIDATE * n_cand + P2P_OPS_PER_LANE * n_k
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
+    print(f"[{card}] B3 p2p window kernel: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms ({n_cand} candidates, {n_cols} "
+          f"distinct columns, {n_bytes} B = {bytes_ms:.4f} ms, {n_ops:.3e} ops = "
+          f"{ops_ms:.4f} ms)")
+    return {"name": name, "route": "cuda",
+            "source": PORT_CSRC + "p2p_window_kernel.cu",
+            "replaces": f"{JAX_P2P_KERNEL}:77",
+            "launches": step_launches + runner_launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
 
 
 def main() -> int:
@@ -281,21 +494,25 @@ def main() -> int:
           f"{b1_ops:.3e} ops); rescue chunk w={sp.rescue_window}: "
           f"{b1r_ms:.4f} ms (plain {b1r_plain_ms:.4f} ms)")
 
+    # ---- phase 5: the particle-particle path ----
+    b3 = drive_p2p(torch, card)
+
     kernels = [
         {"name": "cells_window_lookup", "route": "cuda",
-         "source": "particlesystemhybridcollisiondetection_tpu_torch/ops/cuda/csrc/cells_kernel.cu",
+         "source": PORT_CSRC + "cells_kernel.cu",
          "replaces": f"{JAX_KERNELS}:192", "launches": launches["cells_window_lookup"],
          "max_abs_err": 0.0 if not b2_bad else float(b2_bad),
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "window_collide_sorted", "route": "cuda",
-         "source": "particlesystemhybridcollisiondetection_tpu_torch/ops/cuda/csrc/window_kernel.cu",
+         "source": PORT_CSRC + "window_kernel.cu",
          "replaces": f"{JAX_KERNELS}:346", "launches": launches["window_collide_sorted"],
          "max_abs_err": max(b1_err.values()),
          "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": max(b1_bytes_ms, b1_ops_ms),
          "bound_by": "operations" if b1_ops_ms >= b1_bytes_ms else "bytes",
          "library_ms": None},
+        b3,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

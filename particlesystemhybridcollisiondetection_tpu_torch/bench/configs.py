@@ -1,0 +1,191 @@
+"""The benchmark configurations of the gravity box, runnable by
+number (port of the JAX package's ``bench/configs.py``).  Each returns a
+metrics dict.
+
+  1. brute-force O(n^2) sphere-sphere vs the grid path, ~2k particles
+  2. uniform grid broad phase, 50k particles, walls + restitution
+  3. hybrid (screen-space + exact fallback), 250k: not ported yet
+  4. 1M particles, on-device grid build + narrow phase + integrate
+  5. 4M particles, spatial grid sharded across devices: not ported yet
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+    ParticleState,
+    resolve_device,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.core.step import (
+    _walls_integrate,
+    make_p2p_step,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as p2p_ops
+from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+
+def _box_state(n, box_lo, box_hi, radius, restitution, seed=0, hetero=False,
+               device="cuda") -> ParticleState:
+    """``n`` particles in the upper half of the box, from
+    ``np.random.default_rng(seed)``: the arrays are made in NumPy, draw
+    for draw as the JAX package makes them, then moved to ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(box_lo)
+    hi = np.asarray(box_hi)
+    pos = np.stack(
+        [
+            rng.uniform(lo[0] + radius, hi[0] - radius, n),
+            rng.uniform((lo[1] + hi[1]) / 2, hi[1] - radius, n),
+            rng.uniform(lo[2] + radius, hi[2] - radius, n),
+        ]
+    ).astype(np.float32)
+    r = (
+        rng.uniform(0.7 * radius, 1.3 * radius, n).astype(np.float32)
+        if hetero
+        else np.full(n, radius, dtype=np.float32)
+    )
+    e = (
+        rng.uniform(0.2, 0.6, n).astype(np.float32)
+        if hetero
+        else np.full(n, restitution, dtype=np.float32)
+    )
+    vel = (rng.normal(size=(3, n)) * 0.5).astype(np.float32)
+    return ParticleState(
+        pos=torch.from_numpy(pos).to(dev),
+        vel=torch.from_numpy(vel).to(dev),
+        collisions=torch.zeros((n,), dtype=torch.int32, device=dev),
+        radius=torch.from_numpy(r).to(dev),
+        restitution=torch.from_numpy(e).to(dev),
+    )
+
+
+def _time_steps(step, state, steps, chunk=50):
+    """Python-loop dispatch after one warm step, fenced per chunk (a
+    device synchronize).  Returns (state, steps/s, seconds)."""
+    state = step(state)
+    fence(state.pos)
+    t0 = time.perf_counter()
+    done = 0
+    while done < steps:
+        k = min(chunk, steps - done)
+        for _ in range(k):
+            state = step(state)
+        done += k
+        fence(state.pos)
+    dt = time.perf_counter() - t0
+    return state, done / dt, dt
+
+
+def config_1(steps: int = 500, n: int = 2048, device="cuda") -> dict:
+    """Brute-force O(n^2) sphere-sphere vs the grid path.
+
+    The "reference path" here is the literal O(n^2) evaluation (every
+    pair tested densely); the grid path must agree statistically and
+    beat it.
+    """
+    box_lo, box_hi = (0.0, 0.0, 0.0), (24.0, 32.0, 24.0)
+    cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
+    state = _box_state(n, box_lo, box_hi, 0.4, 0.3, device=device)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32,
+                           device=state.pos.device)
+
+    def brute_step(s):
+        return _walls_integrate(p2p_ops.p2p_collide_allpairs(s), box_lo,
+                                box_hi, gravity, cfg.dt)
+
+    grid_step = make_p2p_step(box_lo, box_hi, cfg, capacity=12, device=device)
+
+    _, brute_sps, _ = _time_steps(brute_step, state, min(steps, 100))
+    out, grid_sps, _ = _time_steps(grid_step, state, steps)
+    return {
+        "config": 1,
+        "particles": n,
+        "brute_steps_per_sec": brute_sps,
+        "grid_steps_per_sec": grid_sps,
+        "speedup": grid_sps / brute_sps,
+        "particle_steps_per_sec": grid_sps * n,
+        "contacts": int(out.collisions.sum()),
+    }
+
+
+def _config_box(config: int, steps: int, n: int, box_hi, chunk: int,
+                device) -> dict:
+    """Configs 2 and 4: ``n`` particles in a box, variant "auto"."""
+    box_lo = (0.0, 0.0, 0.0)
+    cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
+    state = _box_state(n, box_lo, box_hi, 0.4, 0.3, device=device)
+    step = make_p2p_step(
+        box_lo, box_hi, cfg, capacity=8, variant="auto", with_stats=True,
+        device=device,
+    )
+    out, sps, _ = _time_steps(lambda s: step(s)[0], state, steps, chunk=chunk)
+    _, stats = step(out)
+    return {
+        "config": config,
+        "particles": n,
+        "variant": step.variant,
+        "steps_per_sec": sps,
+        "particle_steps_per_sec": sps * n,
+        "contacts": int(out.collisions.sum()),
+        "cell_overflow_last_step": int(stats["cell_overflow"]),
+    }
+
+
+def config_2(steps: int = 500, n: int = 50_000, device="cuda") -> dict:
+    """50k particles, uniform grid, walls + restitution."""
+    side = round(n ** (1 / 3) * 4 * 0.4)  # ~4r spacing at fill
+    return _config_box(2, steps, n, (side, side, side), 50, device)
+
+
+def config_3(*args, **kwargs) -> dict:
+    raise NotImplementedError(
+        "config 3 (hybrid) is not ported yet: ROADMAP.md queue A6")
+
+
+def config_4(steps: int = 200, n: int = 1_000_000, device="cuda") -> dict:
+    """1M particles, on-device grid build + narrow phase + integrate."""
+    side = round(n ** (1 / 3) * 4 * 0.4)
+    return _config_box(4, steps, n, (side, side / 2, side), 20, device)
+
+
+def config_5(*args, **kwargs) -> dict:
+    raise NotImplementedError(
+        "config 5 (sharded domain) is not ported yet: ROADMAP.md queue A9")
+
+
+CONFIGS = {1: config_1, 2: config_2, 3: config_3, 4: config_4, 5: config_5}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> None:
+    """``python3 -m <package>.bench.configs 1 2 4``: run the numbered
+    configurations on the GPU and print one JSON line each, with the
+    card's name and power limit."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("ids", type=int, nargs="+", choices=sorted(CONFIGS))
+    args = ap.parse_args(argv)
+    card = card_line()
+    for i in args.ids:
+        print(json.dumps({**CONFIGS[i](), "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """Carry particle state and grid tables across from NumPy.
 
 The dicts and arrays here are what the JAX package produces
-(``core/state.py::snapshot``; the fields of its ``TriangleGrid`` and
-``GridMeta``), so a test can feed both packages the same inputs.  Only
+(``core/state.py::snapshot``; the fields of its ``TriangleGrid``,
+``GridMeta`` and ``PGridMeta``), so a test can feed both packages the same inputs.  Only
 NumPy crosses the boundary: nothing here imports JAX.
 """
 
@@ -19,6 +19,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
     GridMeta,
     TriangleGrid,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.ops.pgrid import PGridMeta
 
 _STATE_DTYPES = {
     "pos": np.float32,
@@ -71,3 +72,14 @@ def grid_from_numpy(offsets, tri_ids, v0, v1, v2, meta_fields: dict,
         num_triangles=int(meta_fields["num_triangles"]),
     )
     return grid, meta
+
+
+def pgrid_meta_from_fields(meta_fields: dict) -> PGridMeta:
+    """The particle grid's PGridMeta from the fields of the JAX
+    package's (origin, cell_size, dims, capacity)."""
+    return PGridMeta(
+        origin=tuple(float(x) for x in meta_fields["origin"]),
+        cell_size=float(meta_fields["cell_size"]),
+        dims=tuple(int(x) for x in meta_fields["dims"]),
+        capacity=int(meta_fields["capacity"]),
+    )

@@ -1,7 +1,9 @@
-"""Sorted spatial step and the persistent sorted episode runner.
+"""Sorted spatial step and its persistent episode runner; the
+particle-particle gravity-box step and its episode runner.
 
-Port of the sorted pipeline of the JAX package's ``core/step.py``.  One
-step runs, in order: sort the particles on the Morton key of their
+Port of the sorted pipeline and of the p2p entry points
+(``make_p2p_step``, ``make_p2p_episode_runner``, at the end of this
+file) of the JAX package's ``core/step.py``.  One spatial step runs, in order: sort the particles on the Morton key of their
 travel-segment midpoint; look up each particle's ``(start, count)`` (the
 cells kernel, or a gather from ``cells2``); plan one candidate window per
 row of 128 sorted particles; run the window kernel (exact narrow phase,
@@ -25,13 +27,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.config import (
+    FLOAT_SENTINEL,
+    SimConfig,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.core import vec
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
+    active_mask,
     resolve_device,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops import narrow_phase as nphase
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as p2p_ops
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as p2ps
+from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     BLOCK,
     LANE,
@@ -51,6 +60,9 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
     pack_grid,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.integrate import integrate
+from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_dense import (
+    p2p_collide_dense,
+)
 
 
 class HostSyncs:
@@ -728,3 +740,214 @@ def make_sorted_episode_runner(
     )
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
                                rescue_chunk, rescue_compact)
+
+
+# ------------------------------------------------- particle-particle ----
+
+P2P_VARIANTS = ("kernel", "sorted", "slots", "dense")
+
+
+def _p2p_meta(box_lo, box_hi, cfg: SimConfig, cell_size, capacity: int,
+              max_radius) -> pg.PGridMeta:
+    """Particle-grid geometry of a gravity box.  The 27-cell stencil
+    misses contacts when cell_size < 2 * the largest radius, so that is
+    refused here."""
+    r_max = cfg.particle_radius if max_radius is None else float(max_radius)
+    h = 2.0 * r_max if cell_size is None else cell_size
+    if h < 2.0 * r_max - 1e-6:
+        raise ValueError(
+            f"cell_size {h} < 2 * max radius {r_max}: the 27-cell stencil "
+            "would miss contacts between large particles in non-adjacent cells"
+        )
+    return pg.make_meta(box_lo, box_hi, h, capacity=capacity)
+
+
+def _walls_integrate(state: ParticleState, box_lo, box_hi, gravity,
+                     dt: float) -> ParticleState:
+    """Wall response, then the integrator (both elementwise)."""
+    state = p2p_ops.box_walls_collide(state, box_lo, box_hi, gravity, dt)
+    new_pos, new_vel = integrate(state.pos, state.vel, gravity, dt)
+    return state._replace(pos=new_pos, vel=new_vel)
+
+
+def make_p2p_step(
+    box_lo,
+    box_hi,
+    cfg: SimConfig,
+    cell_size: Optional[float] = None,
+    capacity: int = 8,
+    variant: str = "auto",
+    with_stats: bool = False,
+    max_radius: Optional[float] = None,
+    window: int = 512,
+    fallback_capacity: int = 8192,
+    device="cuda",
+):
+    """Gravity-box step with particle-particle collisions + container
+    walls (``bench/configs.py``; a capability extension over the
+    reference Unity project, which has no particle-particle interaction).
+
+    Order per step: p2p impulses -> wall response -> integrate, keeping
+    the collide-before-integrate convention.
+
+    ``variant``: "kernel" (sorted 9-run window kernel B3, exact for any
+    occupancy), "sorted" (the same runs evaluated by column gathers),
+    "slots" (27 x capacity gather loop), "dense" (the gather-free
+    cell-table stencil, for small boxes), or "auto": "kernel" when the
+    device is CUDA and "sorted" on the CPU, when the grid has >= 3 cells
+    in z; else "slots".  The step's ``variant`` attribute names the one
+    chosen, its ``syncs`` attribute counts its host reads.
+
+    ``with_stats``: return ``(state, {"cell_overflow": ...})`` so
+    saturated-cell drops (one-sided impulses) are observable.  The
+    sorted variant cannot saturate and always reports 0.  For the kernel
+    variant it is a host int: the particles redone exactly by the
+    window-overflow fallback (results stay exact).
+    ``max_radius``: largest particle radius in the state
+    (heterogeneous-radii runs must pass it).
+    ``window``/``fallback_capacity``: kernel-variant tuning (per-row
+    window size and exact-redo chunk size; see ops/p2p_sorted).
+    """
+    dev = resolve_device(device)
+    meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    if variant == "auto":
+        if meta.dims[2] >= 3:
+            variant = "kernel" if dev.type == "cuda" else "sorted"
+        else:
+            variant = "slots"
+    if variant not in P2P_VARIANTS:
+        raise ValueError(f"variant {variant!r} is not one of {P2P_VARIANTS}")
+    if variant in ("kernel", "sorted"):
+        p2ps.check_meta(meta)
+    syncs = HostSyncs()
+
+    def collide(state: ParticleState):
+        act = active_mask(state)
+        if variant == "kernel":
+            return p2ps.p2p_collide_window(
+                state, meta, active=act, window=window,
+                fallback_capacity=fallback_capacity, syncs=syncs)
+        if variant == "sorted":
+            return p2ps.p2p_collide_sorted(state, meta, active=act, syncs=syncs)
+        if variant == "dense":
+            return p2p_collide_dense(state, meta, active=act)
+        return p2p_ops.p2p_collide(state, meta, active=act)
+
+    def step(state: ParticleState):
+        state, overflow = collide(state)
+        out = _walls_integrate(state, box_lo, box_hi, gravity, cfg.dt)
+        return (out, {"cell_overflow": overflow}) if with_stats else out
+
+    step.variant = variant
+    step.syncs = syncs
+    return step
+
+
+class P2PEpisodeRunner:
+    """Gravity-box episode runner with PERSISTENT sorted order (see
+    make_p2p_episode_runner).  ``runner(state, num_steps)`` returns the
+    state in the original particle order; ``syncs.count`` and ``steps``
+    count host reads and steps over all calls."""
+
+    def __init__(self, box_lo, box_hi, cfg: SimConfig, meta: pg.PGridMeta,
+                 window: int, fallback_capacity: int, device: torch.device):
+        self.box_lo, self.box_hi = box_lo, box_hi
+        self.cfg = cfg
+        self.meta = meta
+        self.window = window
+        self.fallback_capacity = fallback_capacity
+        self.gravity = torch.tensor(cfg.gravity, dtype=torch.float32,
+                                    device=device)
+        self.syncs = HostSyncs()
+        self.steps = 0
+
+    def _step(self, rows8, aux):
+        """One step on the carried rows: plan + kernel, fallback, then
+        walls and integration in sorted order."""
+        active = torch.abs(rows8[0]) < FLOAT_SENTINEL * 0.5
+        cid_key = p2ps._cell_key(rows8[0:3], self.meta, active)
+        pos_k, vel_k, ncon_k, rows_s, starts, cnt, overflow, perm = (
+            p2ps._phase1_core(rows8, cid_key, self.meta, beta=0.5,
+                              window=self.window))
+        n_k = rows_s.shape[-1]
+        pos_k, vel_k, ncon_k, n_over = p2ps._p2p_chunked_fallback(
+            (pos_k, vel_k, ncon_k), rows_s, starts, cnt, overflow, 0.5,
+            min(self.fallback_capacity, n_k), self.syncs,
+        )
+        aux_s = aux[:, perm]
+        st = _walls_integrate(
+            ParticleState(pos=pos_k, vel=vel_k, collisions=aux_s[0],
+                          radius=rows_s[6], restitution=rows_s[7]),
+            self.box_lo, self.box_hi, self.gravity, self.cfg.dt,
+        )
+        rows_out = torch.cat([st.pos, st.vel, rows_s[6:8]], dim=0)
+        # as in the JAX package's runner, the carried counter takes the
+        # particle contacts only: wall hits (st.collisions) are not added
+        aux_out = torch.stack([aux_s[0] + ncon_k, aux_s[1]])
+        return rows_out, aux_out, n_over
+
+    def __call__(self, state: ParticleState, num_steps: int,
+                 with_stats: bool = False):
+        """``with_stats=True``: also return the per-step counts of lanes
+        redone by the window-overflow fallback (host ints)."""
+        n = state.pos.shape[-1]
+        dev = state.pos.device
+        if dev != self.gravity.device:
+            raise ValueError(f"state is on {dev}, the runner on "
+                             f"{self.gravity.device}")
+        n_k = ((n + BLOCK - 1) // BLOCK) * BLOCK
+        # carried: rows8 f32[8, n_k] = pos3 vel3 radius restitution;
+        # aux i32[2, n_k] = (collisions, original ids)
+        rows8 = p2ps._state_rows(state)
+        coll = state.collisions
+        if n_k > n:
+            rows8 = torch.cat([rows8, p2ps._pad_columns(n_k - n, dev)], dim=1)
+            coll = torch.cat([coll, torch.zeros((n_k - n,), dtype=torch.int32,
+                                                device=dev)])
+        aux = torch.stack([coll, torch.arange(n_k, dtype=torch.int32, device=dev)])
+        overflows = []
+        for _ in range(num_steps):
+            rows8, aux, n_over = self._step(rows8, aux)
+            overflows.append(n_over)
+        self.steps += num_steps
+        # restore the original order once
+        ids = aux[1].long()
+        out8 = torch.empty_like(rows8)
+        out_aux = torch.empty_like(aux)
+        out8[:, ids] = rows8
+        out_aux[:, ids] = aux
+        out = state._replace(pos=out8[0:3, :n], vel=out8[3:6, :n],
+                             collisions=out_aux[0, :n])
+        return (out, overflows) if with_stats else out
+
+
+def make_p2p_episode_runner(
+    box_lo,
+    box_hi,
+    cfg: SimConfig,
+    cell_size: Optional[float] = None,
+    capacity: int = 8,
+    max_radius: Optional[float] = None,
+    *,
+    window: int = 512,
+    fallback_capacity: int = 8192,
+    device="cuda",
+) -> P2PEpisodeRunner:
+    """Gravity-box episode runner with PERSISTENT sorted order: the p2p
+    analog of make_sorted_episode_runner (same contact model and step
+    composition as make_p2p_step's kernel variant).
+
+    Unlike the spatial runner there is no lazy re-sort: the p2p
+    candidate runs are CSR segments over the PARTICLES themselves, so
+    exact cell grouping is a correctness requirement, not a locality
+    hint, and every step sorts.  What persisting the order removes is
+    the per-step order RESTORATION and the per-step sentinel pad: the
+    carried [8, n_k] rows stay in the previous step's sorted order and
+    the original order is restored once, at the end of the call.
+    """
+    dev = resolve_device(device)
+    meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)
+    p2ps.check_meta(meta)
+    return P2PEpisodeRunner(box_lo, box_hi, cfg, meta, window,
+                            fallback_capacity, dev)
