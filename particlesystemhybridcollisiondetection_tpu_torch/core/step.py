@@ -867,14 +867,11 @@ class P2PEpisodeRunner:
         walls and integration in sorted order."""
         active = torch.abs(rows8[0]) < FLOAT_SENTINEL * 0.5
         cid_key = p2ps._cell_key(rows8[0:3], self.meta, active)
-        pos_k, vel_k, ncon_k, rows_s, starts, cnt, overflow, perm = (
-            p2ps._phase1_core(rows8, cid_key, self.meta, beta=0.5,
-                              window=self.window))
-        n_k = rows_s.shape[-1]
+        parts = p2ps._phase1_core(rows8, cid_key, self.meta, beta=0.5,
+                                  window=self.window)
         pos_k, vel_k, ncon_k, n_over = p2ps._p2p_chunked_fallback(
-            (pos_k, vel_k, ncon_k), rows_s, starts, cnt, overflow, 0.5,
-            min(self.fallback_capacity, n_k), self.syncs,
-        )
+            parts, 0.5, self.fallback_capacity, self.syncs)
+        rows_s, perm = parts.rows_s, parts.perm
         aux_s = aux[:, perm]
         st = _walls_integrate(
             ParticleState(pos=pos_k, vel=vel_k, collisions=aux_s[0],

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fns: dict = {}
 #: per-source ptxas report (registers, shared memory, spills) of the
 #: builds made by this process
 build_log: dict = {}
@@ -99,7 +100,11 @@ def _build_locked(names) -> float:
 
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of kernel library ``name`` (built on
-    first use), returning the launch's ``cudaError_t`` as an int."""
+    first use), returning the launch's ``cudaError_t`` as an int.  The
+    bound function is kept: a wrapper asks for it on every call."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -107,7 +112,8 @@ def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
                 _build_locked([n for n in SOURCES if _stale(n)])
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
     return fn

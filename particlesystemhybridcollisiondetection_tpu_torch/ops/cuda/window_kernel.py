@@ -15,6 +15,12 @@ wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (on the current stream) or raises.  Each
 launch adds one to ``LAUNCHES[<wrapper name>]``.
 
+The window kernel spreads a row's candidates over the threads of its
+block and reduces the nearest hit with a 64-bit minimum over the packed
+keys ``(bits(t2) << 32) | k``; a launch with few rows (a rescue chunk) runs several
+blocks per row (``row_split``) and a finishing kernel, still one launch
+of the wrapper.
+
 The TPU kernels' layout devices (16-row table padding, the MXU
 permutation matmul, the in-register lane-gather cascade, flat
 scalar-prefetch arrays) have no counterpart here; the plan semantics
@@ -45,6 +51,15 @@ _K_SLAB = 16
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 LAUNCHES = {"cells_window_lookup": 0, "window_collide_sorted": 0}
+
+# The window kernel stages [9][w] floats of pair rows in shared memory
+# (an SM has 227 KB for a block); above this window it cannot launch
+MAX_WINDOW = 4096
+# threads per row block of the window kernel (128 own a particle, all
+# walk the row's candidate list)
+_ROW_THREADS = 256
+# most blocks per row that a launch with few rows is split into
+_MAX_SPLIT = 16
 
 
 def reset_launches() -> None:
@@ -394,6 +409,25 @@ def window_collide_sorted_plain(
     return out_pos, out_vel, hit.to(torch.int32)
 
 
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once)."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device]
+
+
+def row_split(n: int, sm_count: int) -> int:
+    """Blocks per row of 128 particles for a window-kernel launch over
+    ``n`` lanes: 1 when the rows alone give every SM two blocks, else as
+    many as bring the launch to two blocks per SM (the rescue chunk: 8192
+    lanes = 64 rows)."""
+    return max(1, min(_MAX_SPLIT, (2 * sm_count) // max(1, n // LANE)))
+
+
 def window_collide_sorted(
     pos_s,  # f32[3, N] sorted
     vel_s,
@@ -416,6 +450,8 @@ def window_collide_sorted(
     n = pos_s.shape[-1]
     if n % BLOCK:
         raise ValueError(f"particle count {n} is not a multiple of {BLOCK}")
+    if not 0 < w <= MAX_WINDOW:
+        raise ValueError(f"window {w} is outside (0, {MAX_WINDOW}]")
     kw = dict(w=w, k_static=k_static, gravity=gravity, dt=dt, backoff=backoff)
     if pos_s.device.type == "cpu":
         return window_collide_sorted_plain(
@@ -441,11 +477,16 @@ def window_collide_sorted(
     c = ctypes
     fn = build.kernel_function("window_kernel", "psys_window_collide", [
         *([c.c_void_p] * 9), c.c_int64, *([c.c_void_p] * 3), c.c_int64,
-        c.c_int32, c.c_int32, *([c.c_float] * 6), c.c_void_p,
+        c.c_int32, c.c_int32, *([c.c_float] * 6), c.c_int32, c.c_int32,
+        c.c_void_p, c.c_void_p,
     ])
     pos_o = torch.empty_like(pos_s)
     vel_o = torch.empty_like(vel_s)
     hit_o = torch.empty((n,), dtype=torch.int32, device=dev)
+    split = row_split(n, _sm_count(dev))
+    # scratch of the split launch: one nearest-hit key per lane (the
+    # launch fills it with the kernel's NO_HIT key before the row blocks run)
+    keys = torch.empty((n,), dtype=torch.int64, device=dev) if split > 1 else None
     f32 = np.float32
     err = fn(
         _ptr(pos_s), _ptr(vel_s), _ptr(radius_s), _ptr(restit_s), _ptr(rel),
@@ -455,7 +496,7 @@ def window_collide_sorted(
         # tensor-by-Python-scalar products round them
         float(f32(gravity[0])), float(f32(gravity[1])), float(f32(gravity[2])),
         float(f32(dt)), float(f32(dt * dt)), float(f32(backoff)),
-        _stream(dev),
+        split, _ROW_THREADS, _ptr(keys) if split > 1 else None, _stream(dev),
     )
     _raise_on(err, "window_collide_sorted")
     LAUNCHES["window_collide_sorted"] += 1

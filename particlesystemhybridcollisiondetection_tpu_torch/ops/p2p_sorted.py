@@ -13,7 +13,9 @@ slot and drops particles from full cells.  This module sorts instead:
   4. per run, a loop over k < max(end - start), each iteration one planar
      [8, N] column gather + the masked pair math (``p2p_collide_sorted``),
      or all nine runs inside the window kernel (``p2p_collide_window``,
-     ``ops/cuda/p2p_window_kernel.py``);
+     ``ops/cuda/p2p_window_kernel.py``), which derives step 3's runs and
+     its own windows from the sorted cell ids and the CSR offsets (the
+     same plan in plain PyTorch: ``ops/p2p_plan.py``);
   5. impulses and pushes accumulate in sorted order; one un-sort.
 
 Exact for any occupancy: candidate runs are CSR segments, not
@@ -42,16 +44,17 @@ Where the JAX package loops and branches on the device (``while_loop``,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import ParticleState
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as plan
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.p2p_window_kernel import (
     BLOCK,
-    LANE,
     N_GROUPS,
-    SUB,
-    p2p_window_collide_sorted,
+    p2p_window_collide_cells,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p import pair_contact
 
@@ -80,65 +83,6 @@ def _pad_columns(k: int, device) -> torch.Tensor:
     pad[0:3] = 1.0e38
     pad[6] = 1.0
     return pad
-
-
-def _group_offsets(meta: pg.PGridMeta):
-    """The nine (dx, dy) linear-cell offsets of the 3-cell z-runs."""
-    dy, dz = meta.dims[1], meta.dims[2]
-    return [(ox, oy, (ox * dy + oy) * dz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)]
-
-
-def _csr_offsets(cid_key: torch.Tensor, num_cells: int) -> torch.Tensor:
-    """i32[C+2] CSR offsets over cells plus the parked pseudo-cell C;
-    offsets[C] = number of active particles."""
-    counts = torch.bincount(cid_key, minlength=num_cells + 1)
-    zero = torch.zeros((1,), dtype=torch.int32, device=cid_key.device)
-    return torch.cat([zero, torch.cumsum(counts, 0).to(torch.int32)])
-
-
-def _run_table(offsets: torch.Tensor, meta: pg.PGridMeta) -> torch.Tensor:
-    """Stacked [18, C] run-bounds table: row g = start of group g's
-    3-cell run for every cell, row 9+g = its end.  Built from SLICES of
-    the CSR offsets (static starts, in range by the pad), so the
-    per-particle bounds of all nine runs cost one stacked gather."""
-    num_cells = meta.num_cells
-    pad = meta.dims[1] * meta.dims[2] + meta.dims[2] + 2
-    o_act = offsets[: num_cells + 1]  # offsets[C] = active count
-    opad = torch.cat([
-        torch.zeros((pad,), dtype=torch.int32, device=offsets.device),
-        o_act,
-        o_act[-1:].expand(pad),
-    ])
-    offs = [off for _, _, off in _group_offsets(meta)]
-    rows = [opad[pad + off - 1: pad + off - 1 + num_cells] for off in offs]
-    rows += [opad[pad + off + 2: pad + off + 2 + num_cells] for off in offs]
-    return torch.stack(rows)  # [18, C]
-
-
-def _run_bounds(cid_s, run_tab, meta: pg.PGridMeta):
-    """Per-particle (start, count) of each of the nine runs, with
-    out-of-grid rows and parked particles masked to count 0.
-    Returns (starts i32[9, N], cnt i32[9, N])."""
-    num_cells = meta.num_cells
-    dy, dz = meta.dims[1], meta.dims[2]
-    live = cid_s < num_cells
-    cs = torch.clamp(cid_s, max=num_cells - 1)
-    bounds = run_tab[:, cs]  # [18, N]: the one stacked planar gather
-    starts = bounds[:N_GROUPS]
-    ends = bounds[N_GROUPS:]
-    cx_s = cs // (dy * dz)
-    cy_s = (cs // dz) % dy
-    ok = []
-    for ox, oy, _ in _group_offsets(meta):
-        ok.append(
-            live
-            & (cx_s + ox >= 0)
-            & (cx_s + ox < meta.dims[0])
-            & (cy_s + oy >= 0)
-            & (cy_s + oy < dy)
-        )
-    cnt = torch.where(torch.stack(ok), ends - starts, 0)
-    return starts, cnt
 
 
 def _state_rows(state: ParticleState) -> torch.Tensor:
@@ -232,6 +176,29 @@ def _unsort(state: ParticleState, pos_k, vel_k, ncon_k, perm) -> ParticleState:
     )
 
 
+class WindowParts(NamedTuple):
+    """What phase 1 hands to phase 2, in sorted order and padded to the
+    kernel's block multiple.  The [9, N] run bounds are not among them:
+    the kernel derives its plan itself, and ``run_bounds`` rebuilds them
+    for the fallback when a window overflowed."""
+
+    pos_k: torch.Tensor  # f32[3, n_k] kernel results
+    vel_k: torch.Tensor
+    ncon_k: torch.Tensor  # i32[n_k]
+    rows_s: torch.Tensor  # f32[8, n_k] the sorted input rows
+    overflow: torch.Tensor  # bool[n_k] lanes with a run outside its window
+    perm: torch.Tensor  # i64[n_k] the sort order
+    cid_s: torch.Tensor  # i32[n_k] sorted cell ids
+    offsets: torch.Tensor  # i32[C + 2] CSR offsets over cells
+    meta: pg.PGridMeta
+
+    def run_bounds(self):
+        """(starts, cnt) i32[9, n_k]: every sorted particle's nine full
+        runs (``ops/p2p_plan.py``)."""
+        return plan.run_bounds(
+            self.cid_s, plan.run_table(self.offsets, self.meta), self.meta)
+
+
 def p2p_window_phase1(
     state: ParticleState,
     meta: pg.PGridMeta,
@@ -239,11 +206,10 @@ def p2p_window_phase1(
     beta: float = 0.5,
     active=None,
     window: int = 512,
-):
-    """Sort, CSR and window plan, then the 9-run window kernel.  Returns
-    the parts phase 2 consumes: (pos_k, vel_k, ncon_k, rows_s, starts,
-    cnt, overflow, perm), all in sorted order and padded to the kernel's
-    block multiple.
+) -> WindowParts:
+    """Sort and CSR offsets, then the 9-run window kernel, which derives
+    runs and windows itself from the sorted cell ids and the offsets.
+    Returns the parts phase 2 consumes.
 
     Window granularity is one row of 128 sorted particles: each row and
     group has its own window of ``window`` columns of the sorted rows.
@@ -270,33 +236,9 @@ def _sorted_runs(cid_key, meta: pg.PGridMeta):
     cnt): the sort order and each sorted particle's nine full runs,
     i32[9, N] each."""
     cid_s, perm = torch.sort(cid_key, stable=True)
-    run_tab = _run_table(_csr_offsets(cid_key, meta.num_cells), meta)
-    starts, cnt = _run_bounds(cid_s, run_tab, meta)
+    run_tab = plan.run_table(plan.csr_offsets(cid_key, meta.num_cells), meta)
+    starts, cnt = plan.run_bounds(cid_s, run_tab, meta)
     return perm, starts, cnt
-
-
-def _window_geometry(starts, cnt, window: int):
-    """Per-row windows of the kernel over the runs of ``_sorted_runs``.
-    Returns (rel, ws, k_cap, overflow): each run's start relative to its
-    row's window (clipped to [0, window-1]), the window starts
-    i32[NB, 9, 8], the per-block candidate bound i32[NB, 9] and the
-    bool[n_k] mask of particles with a run outside its window."""
-    n_k = starts.shape[-1]
-    nb = n_k // BLOCK
-    # one window per row of 128 sorted particles per group (runs with
-    # cnt == 0 do not constrain it)
-    big = 1 << 30
-    sb = torch.where(cnt > 0, starts, big).reshape(N_GROUPS, nb * SUB, LANE)
-    ws = sb.min(dim=2).values  # [9, NB*8]
-    ws = torch.where(ws == big, 0, ws)
-    ws = (ws // LANE) * LANE
-    ws = torch.clamp(ws, 0, n_k)  # rows_pad has n_k + window columns
-    k_cap = cnt.reshape(N_GROUPS, nb, BLOCK).max(dim=2).values  # [9, NB]
-    rel = starts - ws.repeat_interleave(LANE, dim=1)  # [9, n_k]
-    overflow = ((cnt > 0) & ((rel < 0) | (rel + cnt > window))).any(dim=0)
-    rel = torch.clamp(rel, 0, window - 1)
-    return (rel, ws.reshape(N_GROUPS, nb, SUB).permute(1, 0, 2).contiguous(),
-            k_cap.t().contiguous(), overflow)
 
 
 def _phase1_core(
@@ -306,26 +248,25 @@ def _phase1_core(
     *,
     beta: float,
     window: int,
-):
-    """Plan + kernel, rows-level (shared by the state-based phase 1 and
-    the persistent-order episode runner)."""
+) -> WindowParts:
+    """Sort + CSR offsets + kernel, rows-level (shared by the state-based
+    phase 1 and the persistent-order episode runner)."""
     n_k = rows.shape[-1]
     if n_k % BLOCK:
         raise ValueError(f"rows hold {n_k} columns, not a multiple of {BLOCK}")
-    perm, starts, cnt = _sorted_runs(cid_key, meta)
-    rel, ws, k_cap, overflow = _window_geometry(starts, cnt, window)
+    cid_s, perm = torch.sort(cid_key, stable=True)
+    offsets = plan.csr_offsets(cid_key, meta.num_cells)
     rows_s = rows[:, perm]
     rows_pad = torch.cat([rows_s, _pad_columns(window, rows.device)], dim=1)
-    pos_k, vel_k, ncon_k = p2p_window_collide_sorted(
-        rows_s[0:3], rows_s[3:6], rows_s[6], rows_s[7], rows_pad, rel, cnt,
-        ws, k_cap, w=window, beta=beta,
-    )
-    return pos_k, vel_k, ncon_k, rows_s, starts, cnt, overflow, perm
+    pos_k, vel_k, ncon_k, overflow = p2p_window_collide_cells(
+        rows_pad, cid_s, offsets, meta, w=window, beta=beta)
+    return WindowParts(pos_k, vel_k, ncon_k, rows_s, overflow, perm, cid_s,
+                       offsets, meta)
 
 
 def p2p_window_phase2(
     state: ParticleState,
-    parts,
+    parts: WindowParts,
     *,
     beta: float = 0.5,
     fallback_capacity: int = 8192,
@@ -333,13 +274,9 @@ def p2p_window_phase2(
 ) -> tuple[ParticleState, int]:
     """Chunked exact redo of the overflow lanes + unsort back to the
     caller's order.  Returns (new_state, n_over), n_over a host int."""
-    pos_k, vel_k, ncon_k, rows_s, starts, cnt, overflow, perm = parts
-    n_k = rows_s.shape[-1]
     pos_k, vel_k, ncon_k, n_over = _p2p_chunked_fallback(
-        (pos_k, vel_k, ncon_k), rows_s, starts, cnt, overflow, beta,
-        min(fallback_capacity, n_k), syncs,
-    )
-    return _unsort(state, pos_k, vel_k, ncon_k, perm), n_over
+        parts, beta, fallback_capacity, syncs)
+    return _unsort(state, pos_k, vel_k, ncon_k, parts.perm), n_over
 
 
 def p2p_collide_window(
@@ -366,26 +303,28 @@ def p2p_collide_window(
                              fallback_capacity=fallback_capacity, syncs=syncs)
 
 
-def _p2p_chunked_fallback(
-    kernel_out, rows_s, starts, cnt, overflow, beta: float, m_cap: int,
-    syncs=None,
-):
-    """Exact redo for window-overflow particles, in m_cap-sized chunks.
+def _p2p_chunked_fallback(parts: WindowParts, beta: float,
+                          fallback_capacity: int, syncs=None):
+    """Exact redo for window-overflow particles, in chunks of at most
+    ``fallback_capacity`` lanes.
 
     Walks the compacted overflow list; each chunk recomputes its
     particles' impulses from the FULL run bounds (no window clipping)
-    with small-index gathers.  No chunk, and no argsort, when nothing
-    overflows (one host read of the overflow count).  Chunk starts clamp
-    to ``n - m``, so the last chunk may overlap the one before: its lanes
-    are recomputed from the unchanged ``rows_s``, and the result is the
-    same.  Writes into ``kernel_out`` in place.
+    with small-index gathers.  No chunk, no run bounds and no argsort
+    when nothing overflows (one host read of the overflow count).  Chunk
+    starts clamp to ``n - m``, so the last chunk may overlap the one
+    before: its lanes are recomputed from the unchanged ``rows_s``, and
+    the result is the same.  Writes into the kernel's results in place
+    and returns (pos_k, vel_k, ncon_k, n_over).
     """
-    pos_k, vel_k, ncon_k = kernel_out
+    pos_k, vel_k, ncon_k = parts.pos_k, parts.vel_k, parts.ncon_k
+    rows_s, overflow = parts.rows_s, parts.overflow
     n = rows_s.shape[-1]
-    m = int(m_cap)
+    m = min(int(fallback_capacity), n)
     n_over = _read(syncs, overflow.sum())
     if n_over == 0:
         return pos_k, vel_k, ncon_k, 0
+    starts, cnt = parts.run_bounds()
     ord2 = torch.argsort(~overflow, stable=True)
     c = 0
     while c * m < n_over:

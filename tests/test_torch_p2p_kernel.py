@@ -16,6 +16,7 @@ from particlesystemhybridcollisiondetection_tpu.ops.pallas import (
     p2p_window_kernel as jk,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.core import state as tstate
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as tplan
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as tp2ps
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as tpg
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
@@ -43,7 +44,7 @@ def planned_inputs(window, device="cpu"):
     rows = torch.cat([tp2ps._state_rows(ts), tp2ps._pad_columns(n_k - n, "cpu")],
                      dim=1).to(device)
     perm, starts, cnt = tp2ps._sorted_runs(key, tm)
-    rel, ws, k_cap, overflow = tp2ps._window_geometry(starts, cnt, window)
+    rel, ws, k_cap, overflow = tplan.window_geometry(starts, cnt, window)
     rows_s = rows[:, perm]
     rows_pad = torch.cat([rows_s, tp2ps._pad_columns(window, device)], dim=1)
     return (rows_s[0:3], rows_s[3:6], rows_s[6], rows_s[7], rows_pad, rel, cnt,
@@ -98,7 +99,9 @@ def test_source_is_registered_and_named():
     assert os.path.exists(src) and so.endswith("libp2p_window_kernel.so")
     text = open(src).read()
     assert 'extern "C" int psys_p2p_window_collide(' in text
-    assert tk.LAUNCHES == {"p2p_window_collide_sorted": 0}
+    assert 'extern "C" int psys_p2p_window_collide_cells(' in text
+    assert tk.LAUNCHES == {"p2p_window_collide_sorted": 0,
+                           "p2p_window_collide_cells": 0}
     assert tk.N_GROUPS == 9 and (tk.SUB, tk.LANE, tk.BLOCK) == (8, 128, 1024)
 
 
@@ -110,6 +113,7 @@ def test_slice_sources_import_no_jax():
     ref = "particlesystemhybridcollisiondetection_tpu"
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|%s)(\.|\s|$)" % ref, re.M)
     files = ["ops/pgrid.py", "ops/p2p.py", "ops/p2p_dense.py", "ops/p2p_sorted.py",
+             "ops/p2p_plan.py",
              "ops/cuda/p2p_window_kernel.py", "core/step.py", "bench/configs.py",
              "convert.py"]
     for f in files:

@@ -29,6 +29,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.step import (
     make_p2p_episode_runner,
     make_p2p_step,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as tplan
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as tp2ps
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as tpg
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -82,7 +83,7 @@ def metas(args):
 
 def test_group_offsets_and_pad_columns_equal():
     jm, tm = metas(((0, 0, 0), (6, 5, 4), 0.4, 8))
-    assert tp2ps._group_offsets(tm) == jp2ps._group_offsets(jm)
+    assert tplan.group_offsets(tm) == jp2ps._group_offsets(jm)
     np.testing.assert_array_equal(tp2ps._pad_columns(7, "cpu").numpy(),
                                   np.asarray(jp2ps._pad_columns(7)))
     with pytest.raises(ValueError):
@@ -99,20 +100,20 @@ def test_run_table_and_bounds_bitwise(case):
     j_key = jnp.where(jstate.active_mask(js), cid, jm.num_cells)
     np.testing.assert_array_equal(t_key.numpy(), np.asarray(j_key))
 
-    t_off = tp2ps._csr_offsets(t_key, tm.num_cells)
+    t_off = tplan.csr_offsets(t_key, tm.num_cells)
     counts = np.bincount(np.asarray(j_key), minlength=jm.num_cells + 1)
     j_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     assert t_off.dtype == torch.int32
     np.testing.assert_array_equal(t_off.numpy(), j_off)
 
     j_tab = jp2ps._run_table(jnp.asarray(j_off), jm)
-    t_tab = tp2ps._run_table(t_off, tm)
+    t_tab = tplan.run_table(t_off, tm)
     assert tuple(t_tab.shape) == (18, tm.num_cells)
     np.testing.assert_array_equal(t_tab.numpy(), np.asarray(j_tab))
 
     cid_s = np.sort(np.asarray(j_key), kind="stable")
     j_st, j_ct = jp2ps._run_bounds(jnp.asarray(cid_s), j_tab, jm)
-    t_st, t_ct = tp2ps._run_bounds(torch.from_numpy(cid_s), t_tab, tm)
+    t_st, t_ct = tplan.run_bounds(torch.from_numpy(cid_s), t_tab, tm)
     np.testing.assert_array_equal(t_st.numpy(), np.asarray(j_st))
     np.testing.assert_array_equal(t_ct.numpy(), np.asarray(j_ct))
     assert int(t_ct.sum()) > 0
@@ -136,7 +137,11 @@ def test_phase1_plan_bitwise_and_kernel_close(case, window):
                                      window=window)
     assert tk.LAUNCHES == before  # CPU tensors: the plain version, no launch
     names = ("pos_k", "vel_k", "ncon_k", "rows_s", "starts", "cnt", "overflow", "perm")
-    t = dict(zip(names, (x.numpy() for x in tparts)))
+    # the port's kernel plans its own windows, so its parts carry the
+    # sorted cell ids and the CSR offsets; run_bounds() rebuilds the runs
+    t_starts, t_cnt = tparts.run_bounds()
+    t = {k: getattr(tparts, k).numpy() for k in names if k not in ("starts", "cnt")}
+    t.update(starts=t_starts.numpy(), cnt=t_cnt.numpy())
     j = dict(zip(names, (np.asarray(x) for x in jparts)))
     for k in ("rows_s", "starts", "cnt", "overflow", "perm"):
         np.testing.assert_array_equal(t[k], j[k], err_msg=k)
@@ -303,13 +308,14 @@ def test_fallback_redoes_every_lane_with_clamped_last_chunk():
     cloud = hetero_cloud(10, n=192)
     tm = tpg.make_meta((0, 0, 0), (8, 8, 8), 0.6, capacity=16)
     _, ts = both(snap(*cloud))
-    pos_k, vel_k, ncon_k, rows_s, starts, cnt, overflow, perm = (
-        tp2ps.p2p_window_phase1(ts, tm))
-    assert rows_s.shape[-1] == 1024 and not overflow.any()
+    parts = tp2ps.p2p_window_phase1(ts, tm)
+    assert parts.rows_s.shape[-1] == 1024 and not parts.overflow.any()
     syncs = HostSyncs()
-    parts = (torch.full_like(pos_k, 7.0), torch.full_like(vel_k, 7.0),
-             torch.full_like(ncon_k, 7), rows_s, starts, cnt,
-             torch.ones_like(overflow), perm)
+    parts = parts._replace(
+        pos_k=torch.full_like(parts.pos_k, 7.0),
+        vel_k=torch.full_like(parts.vel_k, 7.0),
+        ncon_k=torch.full_like(parts.ncon_k, 7),
+        overflow=torch.ones_like(parts.overflow))
     out, n_over = tp2ps.p2p_window_phase2(ts, parts, fallback_capacity=400,
                                           syncs=syncs)
     assert n_over == 1024 and syncs.count == 1 + 9 * 3
