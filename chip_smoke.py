@@ -13,15 +13,27 @@ Phases (each raises on failure; nothing is caught and passed over):
      and both kernels launched (launch counters reset just before);
   3. on the states at step 650 and at step 700 (denser), hold each of
      its kernels against its plain PyTorch version at the main path's
-     shapes (cells lookup; window kernel at the main window and on the
-     first phase-1 rescue chunk), and print how the window kernel's
+     shapes (cells lookup; window kernel at the main window, on the
+     first phase-1 rescue chunk and on a phase-2 launch of 1024 rows with
+     one lane each), and print how the window kernel's
      candidates are spread over lanes and rows;
   4. time each (CUDA events around one call, median of 20, and device
      time from torch.profiler) and its plain version, with the bound of
      each case; run steps 600-700 once more with the
      dense-cell demotion off and print ms/step and overflow beside the
      default's (a reading; the default is unchanged);
-  5. drive the particle-particle main path (``drive_p2p``): 1,000,000
+  5. drive the hybrid path (``drive_hybrid``) on the same scene and
+     spawn: bake "Main Camera" (1920 x 1080, corner normals) on the host,
+     run the hybrid persistent runner 700 steps (cells lookup "kernel",
+     resort_every "auto"; launch counters reset just before), print the
+     undecided share, host reads and overflow, and check it as phase 2
+     does, with the undecided share at step 700 strictly between 0 and
+     1; run the screen-space method 700 steps at the same width; print
+     the three methods' collisions; hold B1 (masked main plan, first
+     rescue chunk, a phase-2 launch) and B2 against their plain versions on the hybrid
+     state at step 650 and time them; hold 20 runner steps from step 600
+     against 20 steps of make_hybrid_step_sorted;
+  6. drive the particle-particle main path (``drive_p2p``): 1,000,000
      particles in the 160 x 80 x 160 gravity box of bench/configs.py
      config 4, 200 steps of make_p2p_step (variant "auto", which must
      resolve to "kernel") and 50 steps of make_p2p_episode_runner, both
@@ -33,11 +45,13 @@ Phases (each raises on failure; nothing is caught and passed over):
      versions on every lane (window 512, and 128 where lanes overflow),
      the overflow mask included, and p2p_collide_window against
      p2p_collide_sorted; time both;
-  6. print the kernel table as one JSON line (``ms`` is the events
+  7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
-     came back empty; the explicit-plan entry point
-     of the p2p kernel, which no main path launches, is listed under
-     that kernel's entry).
+     came back empty; the hybrid path's entries carry "path": "hybrid";
+     the rescue entries count every launch beyond the main one and nest
+     the phase-2 case under "one_lane_per_row";
+     the explicit-plan entry point of the p2p kernel, which no main path
+     launches, is listed under that kernel's entry).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
 """
@@ -174,6 +188,157 @@ def span_columns(torch, col0, bound, n_cols: int) -> int:
     diff.index_add_(0, col0[live], one)
     diff.index_add_(0, (col0 + bound)[live], -one)
     return int((torch.cumsum(diff, 0) > 0).sum())
+
+
+def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sorted_plan,
+                 b2_case, window_case) -> dict:
+    """Phase 5: the hybrid path at full width on the spatial path's scene
+    and spawn, and the screen-space method beside it.  Returns the hybrid
+    path's kernel launches and the kernel-table numbers of B1 and B2 on
+    its state at step 650."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    cfg = scene.config
+    cam, normals = scene.cameras[0], scene.corner_normals
+    cached = os.path.exists(ss.bake_path(scene.triangles, cam, normals))
+    t0 = time.perf_counter()
+    tex = ss.bake_camera(scene.triangles, cam, normals)
+    fence(tex.planar)
+    print(f"[{card}] bake of {cam.name!r} ({cam.width}x{cam.height}, corner "
+          f"normals, {scene.num_triangles} triangles) on the host: "
+          f"{time.perf_counter() - t0:.2f} s; disk cache "
+          f"{'served it' if cached else 'empty, rasterized'}")
+    t0 = time.perf_counter()
+    runner = S.make_sorted_episode_runner(
+        scene.triangles, cfg, cells_lookup="kernel", resort_every="auto",
+        camera=cam, normals=normals)
+    print(f"[{card}] hybrid runner host setup {time.perf_counter() - t0:.1f} s")
+    gravity = runner.sp.gravity
+
+    def undecided_share(state) -> float:
+        _, und = ss.screen_space_collide(state, tex, gravity, cfg.dt, hybrid=True)
+        return float(und[active_mask(state)].float().mean())
+
+    def check(tag, s, want_hits):
+        mask = active_mask(s)
+        bad = int((~torch.isfinite(s.pos[:, mask]).all(0)).sum()
+                  + (~torch.isfinite(s.vel[:, mask]).all(0)).sum())
+        if bad:
+            raise RuntimeError(f"{tag}: {bad} active lanes hold NaN/inf")
+        if not bool((s.pos[0, ~mask] == 1e38).all() and (s.pos[2, ~mask] == 1e38).all()
+                    and (s.collisions[~mask] == 0).all()):
+            raise RuntimeError(f"{tag}: padding sentinels moved or collided")
+        coll = int(s.collisions[mask].sum())
+        if want_hits and coll <= 0:
+            raise RuntimeError(f"{tag}: no collisions in {N_STEPS} steps")
+        return coll
+
+    # ---- the hybrid runner, 700 steps, timed as the spatial path ----
+    wk.reset_launches()
+    syncs0 = runner.syncs.count
+    share, ms = {}, {}
+    h = runner(state0, 1)  # step 0
+    fence(h.pos)
+    share[1] = undecided_share(h)
+    for a, b in ((1, 151), (151, 600)):
+        t0 = time.perf_counter()
+        h = runner(h, b - a)
+        fence(h.pos)
+        ms[(a, b)] = (time.perf_counter() - t0) * 1000.0 / (b - a)
+        share[b] = undecided_share(h)
+    h600 = h
+    t0 = time.perf_counter()
+    h, ovf_a = runner(h, SNAP_STEP - 600, with_stats=True)
+    fence(h.pos)
+    t_a = time.perf_counter() - t0
+    h650 = h
+    t0 = time.perf_counter()
+    h, ovf_b = runner(h, N_STEPS - SNAP_STEP, with_stats=True)
+    fence(h.pos)
+    ms[(600, 700)] = (t_a + time.perf_counter() - t0) * 1000.0 / (N_STEPS - 600)
+    launches = dict(wk.LAUNCHES)
+    syncs_per_step = (runner.syncs.count - syncs0) / N_STEPS
+    share[N_STEPS] = undecided_share(h)
+    coll = check("hybrid path", h, True)
+    ovf = sorted(ovf_a + ovf_b)
+    print(f"[{card}] hybrid path ({cam.name!r}), {N_STEPS} steps at "
+          f"{h.pos.shape[-1]} particles: "
+          + ", ".join(f"steps {a}-{b} {v:.3f} ms/step" for (a, b), v in ms.items())
+          + f"; undecided share (active lanes) "
+          + ", ".join(f"step {k} {v:.4f}" for k, v in share.items())
+          + f"; host reads {syncs_per_step:.2f}/step; overflow steps 600-700 min "
+          f"{ovf[0]} median {ovf[len(ovf) // 2]} max {ovf[-1]}; collisions {coll}; "
+          f"launches {launches}")
+    if not 0.0 < share[N_STEPS] < 1.0:
+        raise RuntimeError(f"undecided share {share[N_STEPS]} at step {N_STEPS} "
+                           "is not strictly between 0 and 1")
+    if launches["cells_window_lookup"] <= 0:
+        raise RuntimeError("the cells kernel never launched on the hybrid path")
+    if launches["window_collide_sorted"] <= N_STEPS:
+        raise RuntimeError(
+            f"window kernel launched {launches['window_collide_sorted']} times in "
+            f"{N_STEPS} hybrid steps: the rescue never used it")
+
+    # ---- the screen-space method at the same width ----
+    step = S.make_method_step(scene, "screen_space")
+    s = state0
+    fence(s.pos)
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS):
+        s = step(s)
+    fence(s.pos)
+    ss_ms = (time.perf_counter() - t0) * 1000.0 / N_STEPS
+    ss_coll = check("screen-space method", s, False)
+    print(f"[{card}] screen-space method ({cam.name!r}), {N_STEPS} steps: "
+          f"{ss_ms:.3f} ms/step; collisions {ss_coll}")
+    print(f"[{card}] total collisions in {N_STEPS} steps at {s.pos.shape[-1]} "
+          f"particles: spatial {spatial_coll}, hybrid {coll}, screen-space {ss_coll}")
+
+    # ---- B1 and B2 against their plain versions on the masked plan ----
+    st, und = ss.screen_space_collide(h650, tex, gravity, cfg.dt, hybrid=True)
+    b2_args, cases, n_ovf = sorted_plan(st, und)
+    print(f"[{card}] hybrid state at step {SNAP_STEP}: undecided "
+          f"{int(und.sum())} lanes, {n_ovf} overflow lanes in the masked main plan; "
+          f"the screen-space stage collides "
+          f"{int((st.collisions - h650.collisions).sum())} particles in this step")
+    numbers = {"b2": b2_case(f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
+               "launches": launches}
+    for tag, (args, w) in cases.items():
+        numbers["b1"][tag] = window_case(f"hybrid {tag}, step {SNAP_STEP}", args, w)
+
+    # ---- the runner against the per-step path, 20 steps from step 600 ----
+    per_step = S.make_hybrid_step_sorted(scene.triangles, cfg, cam, normals,
+                                         cells_lookup="kernel")
+    a = h600
+    for _ in range(20):
+        a = per_step(a)
+    fresh = S.make_sorted_episode_runner(
+        scene.triangles, cfg, cells_lookup="kernel", resort_every="auto",
+        camera=cam, normals=normals)
+    b = fresh(h600, 20)
+    mask = active_mask(h600)
+    coll_diff = int((a.collisions != b.collisions).sum())
+    far = int((~torch.isclose(a.pos[:, mask], b.pos[:, mask], rtol=1e-6,
+                              atol=1e-7).all(0)).sum())
+    print(f"[{card}] hybrid runner vs make_hybrid_step_sorted, 20 steps from step "
+          f"600: collisions differ on {coll_diff} lanes "
+          f"({int(a.collisions[mask].sum())} in all), pos outside rtol 1e-6 "
+          f"atol 1e-7 on {far} lanes")
+    if coll_diff or far:
+        bad = (a.collisions != b.collisions) | ~torch.isclose(
+            a.pos, b.pos, rtol=1e-6, atol=1e-7).all(0)
+        for i in torch.nonzero(bad & mask).flatten()[:5].tolist():
+            print(f"[{card}]   lane {i}: collisions {int(a.collisions[i])} (step) "
+                  f"{int(b.collisions[i])} (runner), pos {a.pos[:, i].tolist()} "
+                  f"(step) {b.pos[:, i].tolist()} (runner)")
+        raise RuntimeError("the hybrid runner disagrees with the per-step path")
+    return numbers
 
 
 def drive_p2p(torch, card: str) -> list:
@@ -522,10 +687,11 @@ def main() -> int:
               dt=cfg.dt, backoff=cfg.backoff)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def sorted_plan(state):
+    def sorted_plan(state, undecided=None):
         """Sort and plan a state as the step does: the cells kernel's
-        arguments, the window kernel's at the main window and on the
-        first phase-1 rescue chunk."""
+        arguments, the window kernel's at the main window, on the first
+        phase-1 rescue chunk and on a phase-2 launch.  ``undecided`` (hybrid): the
+        screen-space stage's mask, which zeroes the other lanes' counts."""
         key = morton_key(lookup_pos(state.pos, state.vel, cfg.dt), sp.meta)
         key_s, perm = torch.sort(key, stable=True)
         rows = torch.cat([state.pos, state.vel, state.radius[None],
@@ -535,15 +701,21 @@ def main() -> int:
         kr = key_s.reshape(nb * wk.SUB, wk.LANE)
         lo = (kr.min(dim=1).values // 128) * 128
         hi = torch.clamp(((kr.max(dim=1).values - S._CODE_WC + 128) // 128) * 128, min=0)
+        active_s = None if undecided is None else undecided[perm]
         rel, count, ws, k_cap, overflow, _ = S._window_plan_coded(
-            key_s, sp.ctab, sp.window, nb, demote=sp.demote)
+            key_s, sp.ctab, sp.window, nb, active_s=active_s, demote=sp.demote)
         pick = S._phase1_order(overflow, key_s)[:8192]
         _, chunk_state, (rel_c, cnt_c, ws_c, kcap_c, _) = S._rescue_chunk(
             sorted_state, overflow, pick, sp.tables, sp.meta, cfg, sp.rescue_window)
+        # a phase-2 launch (one lane per row) on the first 1024 of them
+        pick2 = pick[:1024]
+        args2, _ = S._isolated_plan(sorted_state, overflow[pick2], pick2, sp.tables,
+                                    sp.meta, cfg, sp.rescue_window)
         return ((key_s, lo, hi, sp.ctab),
                 {"main": ((*sorted_state, rel, count, ws, k_cap, sp.tables), sp.window),
                  "rescue chunk": ((*chunk_state, rel_c, cnt_c, ws_c, kcap_c, sp.tables),
-                                  sp.rescue_window)},
+                                  sp.rescue_window),
+                 "one lane per row": ((*args2, sp.tables), sp.rescue_window)},
                 int(overflow.sum()))
 
     def window_case(tag, args, w):
@@ -604,36 +776,42 @@ def main() -> int:
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
+    def b2_case(tag, b2_args):
+        """The cells kernel against its plain version, timed, with its
+        bound.  Returns its kernel-table numbers."""
+        key_s = b2_args[0]
+        start_k, count_k = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
+        start_p, count_p = wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC)
+        torch.cuda.synchronize()
+        hit_cnt = count_p >= 0
+        b2_bad = int((count_k != count_p).sum()
+                     + ((start_k != start_p) & hit_cnt).sum())
+        print(f"[{card}] B2 cells lookup ({tag}) vs plain at N={n}: {b2_bad} lanes "
+              f"differ (misses {int((~hit_cnt).sum())})")
+        if b2_bad:
+            raise RuntimeError(f"cells kernel disagrees with its plain version "
+                               f"on {b2_bad} lanes")
+        b2 = timed(
+            torch, lambda: wk.cells_window_lookup(*b2_args, wc=S._CODE_WC),
+            lambda: wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC))
+        del b2["by_kernel"]
+        # B2 bound: key in, (start, count) out, lo/hi, one table entry
+        # per distinct key
+        n_keys = int(torch.unique(key_s).numel())
+        b2_bytes = 4 * n + 8 * n + 8 * (n // wk.LANE) + 4 * n_keys
+        b2_bound = b2_bytes / H100_BYTES_PER_S * 1e3
+        print(f"[{card}] B2 cells lookup ({tag}): {b2['ms']:.4f} ms by events "
+              f"around the call, {ms_text(b2['device_ms'])} on the device; plain "
+              f"{b2['plain_ms']:.4f} ms; bound {b2_bound:.4f} ms ({b2_bytes} B, "
+              f"{n_keys} distinct keys)")
+        return {"max_abs_err": 0.0, **b2, "bound_ms": b2_bound, "bound_by": "bytes"}
+
     b1 = {}
     for at, state in ((SNAP_STEP, snap), (N_STEPS, s)):
         b2_args, cases, n_ovf = sorted_plan(state)
         print(f"[{card}] state at step {at}: {n_ovf} overflow lanes in the main plan")
         if at == SNAP_STEP:
-            key_s = b2_args[0]
-            start_k, count_k = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
-            start_p, count_p = wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC)
-            torch.cuda.synchronize()
-            hit_cnt = count_p >= 0
-            b2_bad = int((count_k != count_p).sum()
-                         + ((start_k != start_p) & hit_cnt).sum())
-            print(f"[{card}] B2 cells lookup vs plain at N={n}: {b2_bad} lanes "
-                  f"differ (misses {int((~hit_cnt).sum())})")
-            if b2_bad:
-                raise RuntimeError(f"cells kernel disagrees with its plain version "
-                                   f"on {b2_bad} lanes")
-            b2 = timed(
-                torch, lambda: wk.cells_window_lookup(*b2_args, wc=S._CODE_WC),
-                lambda: wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC))
-            del b2["by_kernel"]
-            # B2 bound: key in, (start, count) out, lo/hi, one table entry
-            # per distinct key
-            n_keys = int(torch.unique(key_s).numel())
-            b2_bytes = 4 * n + 8 * n + 8 * (n // wk.LANE) + 4 * n_keys
-            b2_bound = b2_bytes / H100_BYTES_PER_S * 1e3
-            print(f"[{card}] B2 cells lookup: {b2['ms']:.4f} ms by events around "
-                  f"the call, {ms_text(b2['device_ms'])} on the device; plain "
-                  f"{b2['plain_ms']:.4f} ms; bound {b2_bound:.4f} ms ({b2_bytes} B, "
-                  f"{n_keys} distinct keys)")
+            b2 = b2_case(f"spatial, step {at}", b2_args)
         for tag, (args, w) in cases.items():
             b1[(tag, at)] = window_case(f"{tag}, step {at}", args, w)
 
@@ -654,30 +832,51 @@ def main() -> int:
           f"{nodemote.syncs.count / (N_STEPS - 600):.2f}/step; collisions "
           f"{nd_coll} (default {total_coll})")
 
-    # ---- phase 5: the particle-particle path ----
+    # ---- phase 5: the hybrid path on the same scene and spawn ----
+    hyb = drive_hybrid(torch, card, scene, state0, total_coll, sorted_plan,
+                       b2_case, window_case)
+
+    # ---- phase 6: the particle-particle path ----
     b3 = drive_p2p(torch, card)
 
     b1_total = launches["window_collide_sorted"]
 
-    def b1_entry(suffix, case, n_launch):
-        return {"name": "window_collide_sorted" + suffix, "route": "cuda",
-                "source": PORT_CSRC + "window_kernel.cu",
-                "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
-                **b1[case], "library_ms": None}
+    def b1_entry(suffix, numbers, n_launch, phase2=None):
+        entry = {"name": "window_collide_sorted" + suffix, "route": "cuda",
+                 "source": PORT_CSRC + "window_kernel.cu",
+                 "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
+                 **numbers, "library_ms": None}
+        if phase2 is not None:
+            entry["one_lane_per_row"] = {**phase2, "library_ms": None}
+        return entry
 
     # every step launches the window kernel once at the main window; the
-    # launches beyond that are phase-1 rescue chunks
+    # launches beyond that are the rescue's: phase-1 chunks and phase-2
+    # launches of one lane per row (whose case is nested in the entry)
+    def b2_entry(suffix, numbers, n_launch):
+        return {"name": "cells_window_lookup" + suffix, "route": "cuda",
+                "source": PORT_CSRC + "cells_kernel.cu",
+                "replaces": f"{JAX_KERNELS}:192", "launches": n_launch,
+                **numbers, "library_ms": None}
+
+    h_launch = hyb["launches"]
     kernels = [
-        {"name": "cells_window_lookup", "route": "cuda",
-         "source": PORT_CSRC + "cells_kernel.cu",
-         "replaces": f"{JAX_KERNELS}:192", "launches": launches["cells_window_lookup"],
-         "max_abs_err": 0.0 if not b2_bad else float(b2_bad),
-         **b2, "bound_ms": b2_bound,
-         "bound_by": "bytes", "library_ms": None},
-        b1_entry("", ("main", SNAP_STEP), b1_total),
-        b1_entry(":rescue_chunk", ("rescue chunk", SNAP_STEP), b1_total - N_STEPS),
-        b1_entry(":main_step700", ("main", N_STEPS), N_STEPS),
-        b1_entry(":rescue_chunk_step700", ("rescue chunk", N_STEPS), b1_total - N_STEPS),
+        b2_entry("", b2, launches["cells_window_lookup"]),
+        b1_entry("", b1[("main", SNAP_STEP)], b1_total),
+        b1_entry(":rescue_chunk", b1[("rescue chunk", SNAP_STEP)], b1_total - N_STEPS,
+                 b1[("one lane per row", SNAP_STEP)]),
+        b1_entry(":main_step700", b1[("main", N_STEPS)], N_STEPS),
+        b1_entry(":rescue_chunk_step700", b1[("rescue chunk", N_STEPS)],
+                 b1_total - N_STEPS, b1[("one lane per row", N_STEPS)]),
+        # the hybrid path's launches of B1 and B2, held against their plain
+        # versions on the hybrid state at step 650 (counts zeroed on lanes
+        # the screen-space stage decided)
+        {**b2_entry(":hybrid", hyb["b2"], h_launch["cells_window_lookup"]),
+         "path": "hybrid"},
+        {**b1_entry(":hybrid", hyb["b1"]["main"], N_STEPS), "path": "hybrid"},
+        {**b1_entry(":hybrid_rescue_chunk", hyb["b1"]["rescue chunk"],
+                    h_launch["window_collide_sorted"] - N_STEPS,
+                    hyb["b1"]["one lane per row"]), "path": "hybrid"},
         *b3,
     ]
     print(json.dumps({"kernels": kernels}))

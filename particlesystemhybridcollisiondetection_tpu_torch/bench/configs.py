@@ -4,7 +4,7 @@ metrics dict.
 
   1. brute-force O(n^2) sphere-sphere vs the grid path, ~2k particles
   2. uniform grid broad phase, 50k particles, walls + restitution
-  3. hybrid (screen-space + exact fallback), 250k: not ported yet
+  3. hybrid (screen-space + exact fallback), 262k on the bunny scene
   4. 1M particles, on-device grid build + narrow phase + integrate
   5. 4M particles, spatial grid sharded across devices: not ported yet
 """
@@ -16,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.bench.harness import run_episode
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
@@ -25,6 +26,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.step import (
     _walls_integrate,
     make_p2p_step,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import bunny_scene
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as p2p_ops
 from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
 
@@ -143,9 +145,22 @@ def config_2(steps: int = 500, n: int = 50_000, device="cuda") -> dict:
     return _config_box(2, steps, n, (side, side, side), 50, device)
 
 
-def config_3(*args, **kwargs) -> dict:
-    raise NotImplementedError(
-        "config 3 (hybrid) is not ported yet: ROADMAP.md queue A6")
+def config_3(steps: int = 300, layers: int = 16, device="cuda") -> dict:
+    """Hybrid method at 128^2*16 = 262k on the bunny benchmark scene
+    (960 x 540 camera).  Raises FileNotFoundError where the bunny mesh
+    is absent."""
+    scene = bunny_scene(width=960, height=540)
+    # pinned coded plan: a 300-step spawn-phase run is the coded plan's
+    # best regime and too short to amortize the adaptive probe
+    r = run_episode(scene, "hybrid", layers_y=layers, num_steps=steps,
+                    plan="kernel", device=device)
+    return {
+        "config": 3,
+        "particles": r.num_particles,
+        "steps_per_sec": r.steps_per_sec,
+        "particle_steps_per_sec": r.particle_steps_per_sec,
+        "mean_ms": r.mean_ms,
+    }
 
 
 def config_4(steps: int = 200, n: int = 1_000_000, device="cuda") -> dict:

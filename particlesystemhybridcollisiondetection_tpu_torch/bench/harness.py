@@ -1,8 +1,9 @@
-"""Episode harness: roll and time one episode of the spatial method
-through the persistent sorted runner.
+"""Episode harness: roll and time one episode of any of the three
+collision methods.
 
 Port of ``run_episode`` / ``_run_episode_persistent`` of the JAX
-package's ``bench/harness.py``.  Timing is wall-clock around chunks of
+package's ``bench/harness.py``: spatial and hybrid on the persistent
+sorted runner, screen-space one ``make_method_step`` step at a time.  Timing is wall-clock around chunks of
 steps closed by a device synchronize (``utils.profiling.fence``).
 """
 
@@ -20,6 +21,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     spawn_grid,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.core.step import (
+    make_method_step,
     make_sorted_episode_runner,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
@@ -91,6 +93,7 @@ class PlanChooser:
 def run_episode(
     scene,
     method: str,
+    camera_index: int = 0,
     layers_y: int = 1,
     num_steps: Optional[int] = None,
     chunk: int = 50,
@@ -99,35 +102,45 @@ def run_episode(
     plan: str = "adaptive",
     device="cuda",
 ) -> EpisodeResult:
-    """Roll + time one episode of ``method`` ("spatial" only so far) on
-    the persistent sorted runner.
+    """Roll + time one episode of ``method``.
 
-    ``plan``: the (start, count) lookup plan.  "adaptive" builds the
-    cells-kernel plan and the gather plan and keeps the faster per chunk
-    (PlanChooser); "kernel" / "gather" / "auto" pin one plan (pinned runs
-    are run-to-run deterministic).
+    "spatial" and "hybrid" run on the persistent sorted runner (hybrid
+    with ``scene.cameras[camera_index]`` and the scene's corner normals);
+    "screen_space" steps ``make_method_step`` once per step.
+
+    ``plan``: the (start, count) lookup plan of the persistent runner.
+    "adaptive" builds the cells-kernel plan and the gather plan and keeps
+    the faster per chunk (PlanChooser); "kernel" / "gather" / "auto" pin
+    one plan (pinned runs are run-to-run deterministic).  The
+    screen-space method has no such plan.
     """
-    if Method(method) != Method.SPATIAL:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP.md queue A6")
+    method = Method(method)
     cfg = scene.config
     steps = num_steps if num_steps is not None else cfg.lifetime_steps
-    mk = dict(resort_every=resort_every, device=device)
-    if plan != "adaptive":
-        runners = {plan: make_sorted_episode_runner(
-            scene.triangles, cfg, cells_lookup=plan, **mk)}
-    else:
-        runners = {"gather": make_sorted_episode_runner(
-            scene.triangles, cfg, cells_lookup="gather", **mk)}
-        try:
-            runners["kernel"] = make_sorted_episode_runner(
-                scene.triangles, cfg, cells_lookup="kernel", **mk)
-        except ValueError:  # grid too large for the code table
-            pass
-
+    camera = scene.cameras[camera_index] if scene.cameras else None
     state = spawn_grid(cfg, layers_y=layers_y, device=device)
     mask = active_mask(state).cpu().numpy()
-    n_particles = int(mask.sum())
+    if method == Method.SCREEN_SPACE:
+        step = make_method_step(scene, method, camera_index, device=device)
+        runners = {"step": lambda s, n: _repeat(step, s, n)}
+    else:
+        hybrid = method == Method.HYBRID
+        mk = dict(
+            resort_every=resort_every, device=device,
+            camera=camera if hybrid else None,
+            normals=getattr(scene, "corner_normals", None) if hybrid else None,
+        )
+        if plan != "adaptive":
+            runners = {plan: make_sorted_episode_runner(
+                scene.triangles, cfg, cells_lookup=plan, **mk)}
+        else:
+            runners = {"gather": make_sorted_episode_runner(
+                scene.triangles, cfg, cells_lookup="gather", **mk)}
+            try:
+                runners["kernel"] = make_sorted_episode_runner(
+                    scene.triangles, cfg, cells_lookup="kernel", **mk)
+            except ValueError:  # grid too large for the code table
+                pass
 
     # warm every runner outside the timed region (first kernel builds
     # and launches), then advance the episode's warmup steps
@@ -154,11 +167,17 @@ def run_episode(
     total_s = time.perf_counter() - t_start
 
     return EpisodeResult(
-        method=method,
-        camera="none",
-        num_particles=n_particles,
+        method=method.value,
+        camera=camera.name if camera is not None else "none",
+        num_particles=int(mask.sum()),
         num_steps=timed_steps,
         step_ms=step_ms,
         collisions=state.collisions.cpu().numpy()[mask],
         steps_per_sec=timed_steps / max(total_s, 1e-12),
     )
+
+
+def _repeat(step, state, n: int):
+    for _ in range(n):
+        state = step(state)
+    return state

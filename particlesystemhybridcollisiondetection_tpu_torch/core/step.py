@@ -1,14 +1,20 @@
-"""Sorted spatial step and its persistent episode runner; the
-particle-particle gravity-box step and its episode runner.
+"""The three collision methods' steps (``make_method_step``), the sorted
+persistent episode runner, and the particle-particle gravity-box step
+and its episode runner.
 
-Port of the sorted pipeline and of the p2p entry points
-(``make_p2p_step``, ``make_p2p_episode_runner``, at the end of this
-file) of the JAX package's ``core/step.py``.  One spatial step runs, in order: sort the particles on the Morton key of their
+Port of the JAX package's ``core/step.py``: the packed grid step
+(``make_spatial_step_grid``), the screen-space and hybrid steps, the
+sorted pipeline (spatial and hybrid), the runner with its ``camera=``
+(hybrid) stage, and the p2p entry points (``make_p2p_step``,
+``make_p2p_episode_runner``, at the end of this file).  The hybrid
+method runs the screen-space stage first; its undecided mask zeroes the
+candidate counts of decided particles in the exact stage.  One sorted
+spatial step runs, in order: sort the particles on the Morton key of their
 travel-segment midpoint; look up each particle's ``(start, count)`` (the
 cells kernel, or a gather from ``cells2``); plan one candidate window per
 row of 128 sorted particles; run the window kernel (exact narrow phase,
 response and integration, fused); redo the lanes whose candidates did
-not fit their window exactly, in two phases (``_chunked_rescue``).  The
+not fit their window exactly, in up to three phases (``_chunked_rescue``).  The
 response runs before integration and pre-compensates it with ``-g*dt``,
 as in the reference's frame loop (ParticleSys.cs:445-527).
 
@@ -29,6 +35,7 @@ import torch
 
 from particlesystemhybridcollisiondetection_tpu_torch.config import (
     FLOAT_SENTINEL,
+    Method,
     SimConfig,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.core import vec
@@ -63,6 +70,10 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.integrate import integ
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_dense import (
     p2p_collide_dense,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
+    bake_camera,
+    screen_space_collide,
+)
 
 
 class HostSyncs:
@@ -93,7 +104,7 @@ def spatial_collide_packed(
 ) -> ParticleState:
     """Grid spatial collision via the packed planar layout: one [2, N]
     cell gather + one row gather of the groups of candidates the densest
-    occupied cell needs (the phase-2 rescue path; ops.grid.PackedGrid)."""
+    occupied cell needs (the phase-3 rescue path; ops.grid.PackedGrid)."""
     pos, velo = state.pos, state.vel
     n = pos.shape[-1]
     dev = pos.device
@@ -151,6 +162,86 @@ def spatial_collide_packed(
     )
 
 
+def make_spatial_step_grid(triangles, cfg: SimConfig, variant: str = "packed",
+                           group: int = 8, *, device="cuda"):
+    """Spatial method with the static CSR triangle grid broad phase: one
+    cell lookup per particle, the narrow phase over the cell's candidates
+    (``spatial_collide_packed``), then the integrator.  Only the "packed"
+    variant is ported; "dense" and "stream" raise NotImplementedError.
+    The step's ``syncs`` attribute counts its host reads."""
+    if variant in ("dense", "stream"):
+        raise NotImplementedError(
+            f'spatial variant "{variant}" is not ported yet: ROADMAP.md '
+            "queue A2/A3")
+    if variant != "packed":
+        raise ValueError(f"unknown spatial variant {variant!r}")
+    dev = resolve_device(device)
+    grid, meta = build_triangle_grid(triangles, cfg.grid, device=dev)
+    packed, num_groups = pack_grid(grid, meta, group=group)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    syncs = HostSyncs()
+
+    def step(state: ParticleState) -> ParticleState:
+        state = spatial_collide_packed(
+            state, packed, meta, num_groups, group, gravity, cfg.dt,
+            cfg.backoff, syncs=syncs,
+        )
+        new_pos, new_vel = integrate(state.pos, state.vel, gravity, cfg.dt)
+        return state._replace(pos=new_pos, vel=new_vel)
+
+    step.syncs = syncs
+    return step
+
+
+def make_screenspace_step(triangles, cfg: SimConfig, camera, normals=None, *,
+                          device="cuda"):
+    """Screen-space depth collision method (ParticleSys.cs:455-459 path):
+    the screen-space pass against the baked camera, then the integrator.
+
+    ``normals``: optional per-corner shading normals f32[T, 3, 3] for the
+    pre-pass (NormalPrePass.shader interpolation); face normals otherwise.
+    """
+    dev = resolve_device(device)
+    tex = bake_camera(triangles, camera, normals, device=dev)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+
+    def step(state: ParticleState) -> ParticleState:
+        state, _ = screen_space_collide(state, tex, gravity, cfg.dt)
+        new_pos, new_vel = integrate(state.pos, state.vel, gravity, cfg.dt)
+        return state._replace(pos=new_pos, vel=new_vel)
+
+    return step
+
+
+def make_hybrid_step(triangles, cfg: SimConfig, camera, normals=None, *,
+                     device="cuda"):
+    """Hybrid method (ParticleSys.cs:622-639): the screen-space stage,
+    then the exact packed spatial stage restricted to the undecided set,
+    then the integrator.  The reference's atomic append + indirect
+    dispatch (ComputeDispatchArgs.compute:9-21) is a boolean mask here.
+    The step's ``syncs`` attribute counts its host reads."""
+    dev = resolve_device(device)
+    tex = bake_camera(triangles, camera, normals, device=dev)
+    grid, meta = build_triangle_grid(triangles, cfg.grid, device=dev)
+    group = 8
+    packed, num_groups = pack_grid(grid, meta, group=group)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    syncs = HostSyncs()
+
+    def step(state: ParticleState) -> ParticleState:
+        state, undecided = screen_space_collide(
+            state, tex, gravity, cfg.dt, hybrid=True)
+        state = spatial_collide_packed(
+            state, packed, meta, num_groups, group, gravity, cfg.dt,
+            cfg.backoff, active=undecided, syncs=syncs,
+        )
+        new_pos, new_vel = integrate(state.pos, state.vel, gravity, cfg.dt)
+        return state._replace(pos=new_pos, vel=new_vel)
+
+    step.syncs = syncs
+    return step
+
+
 def _window_plan(cid_s, cells2, window: int, nb: int, active_s=None,
                  demote=None):
     """Per-row window plan with the (start, count) lookup as a gather
@@ -169,7 +260,7 @@ def _plan_tail(start, count, window: int, nb: int, miss=None, demote=None):
     k_cap i32[nb], overflow bool[N], ovf_count): each particle's start
     relative to its row's window, the per-block candidate bound, the
     lanes whose candidates do not fit (redone by the rescue), and the
-    pre-zeroing counts (the phase-2 compaction order)."""
+    pre-zeroing counts (the phase-3 compaction order)."""
     big = 1 << 30
     sb = torch.where(count > 0, start, big).reshape(nb * SUB, LANE)
     ws = sb.min(dim=1).values
@@ -281,8 +372,16 @@ def _chunked_rescue(
     ``rescue_window``-row windows.  A chunk runs the kernel only when its
     windows decide a majority of its lanes.
 
-    Phase 2 (packed path, ``m_cap``-lane chunks): lanes whose rescue
-    window still overflows, densest cells first.
+    Phase 2 (window kernel, ``m_cap`` lanes per launch, one lane per
+    row): lanes whose rescue window still overflows.  Alone in its row a
+    lane fits whenever its cell holds at most ``rescue_window`` - 127
+    candidates, so every route but the next computes a lane with the
+    kernel's own arithmetic: the result does not depend on the sort
+    order that sent the lane to the rescue.
+
+    Phase 3 (packed path, ``m_cap``-lane chunks): lanes whose cell
+    outgrows the rescue window (cells above 1920 candidates), densest
+    first.
 
     Exact for any overflow count.  Chunk starts clamp to ``n - m`` like
     ``lax.dynamic_slice``: the last chunk may overlap the one before and
@@ -331,7 +430,31 @@ def _chunked_rescue(
             still[pick] = redo
         c += 1
 
-    # ---- phase 2: packed path on whatever is left ----
+    # ---- phase 2: window kernel, one lane per row ----
+    n_still = syncs.read(still.sum())
+    if n_still == 0:
+        return pos_k, vel_k, hit_k, n_over
+    m2 = min(max(SUB, (min(m_cap, n) // SUB) * SUB), -(-n_still // SUB) * SUB)
+    ord2 = torch.argsort((~still).to(torch.uint8), stable=True)  # still first
+    c = 0
+    while c * m2 < n_still:
+        s0 = min(c * m2, n - m2)
+        pick = ord2[s0:s0 + m2]
+        redo = still[pick]
+        args, fit = _isolated_plan(sorted_state, redo, pick, tables, meta, cfg,
+                                   rescue_window)
+        pos_o, vel_o, hit_o = window_collide_sorted(
+            *args, tables, w=rescue_window, k_static=meta.max_tris_per_cell,
+            gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
+        )
+        take = redo & fit
+        pos_k[:, pick] = torch.where(take[None], pos_o[:, ::LANE], pos_k[:, pick])
+        vel_k[:, pick] = torch.where(take[None], vel_o[:, ::LANE], vel_k[:, pick])
+        hit_k[pick] = torch.where(take, hit_o[::LANE], hit_k[pick])
+        still[pick] = redo & ~fit
+        c += 1
+
+    # ---- phase 3: packed path on lanes whose cell outgrows the window ----
     n_still = syncs.read(still.sum())
     if n_still == 0:
         return pos_k, vel_k, hit_k, n_over
@@ -387,6 +510,27 @@ def _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
     )
     return (redo, (pos_c, vel_c, radius_s[pick], restit_s[pick]),
             (rel, cnt, ws, k_cap, unfit))
+
+
+def _isolated_plan(sorted_state, redo, pick, tables, meta, cfg,
+                   rescue_window: int):
+    """Inputs of one phase-2 launch of the window kernel: lanes ``pick``
+    of the sorted state, each alone in a row of LANE (its copies in the
+    row carry count 0), so a lane fits whenever its cell holds at most
+    ``rescue_window`` - 127 candidates.  Returns (the kernel's lane and
+    plan arguments, fit bool[len(pick)]); lane i is row i's first."""
+    pos_s, vel_s, radius_s, restit_s = sorted_state
+    pos_c, vel_c = pos_s[:, pick], vel_s[:, pick]
+    info = tables.cells2[:, cell_index(lookup_pos(pos_c, vel_c, cfg.dt), meta)]
+    m = pick.shape[0]
+    first = torch.arange(m * LANE, device=pos_s.device) % LANE == 0
+    count = torch.where(first, torch.where(redo, info[1], 0).repeat_interleave(LANE), 0)
+    rel, cnt, ws, k_cap, unfit, _ = _plan_tail(
+        info[0].repeat_interleave(LANE), count, rescue_window, m // SUB)
+    lanes = (pos_c.repeat_interleave(LANE, dim=1), vel_c.repeat_interleave(LANE, dim=1),
+             radius_s[pick].repeat_interleave(LANE),
+             restit_s[pick].repeat_interleave(LANE))
+    return (*lanes, rel, cnt, ws, k_cap), ~unfit[::LANE]
 
 
 def _compact_order(overflow, key_s, n_over: int, cap: int):
@@ -518,11 +662,14 @@ def _build_sorted(triangles, cfg, *, window, fallback_capacity, cells_lookup,
 
 
 def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
-                    syncs: HostSyncs, *, rescue_chunk: int = 8192,
+                    syncs: HostSyncs, *, active_s=None, rescue_chunk: int = 8192,
                     rescue_compact: bool = False):
     """Plan + window kernel + rescue on particles in (approximately)
-    sorted order; ``key_s`` is their current Morton key.  Returns
-    (pos', vel', hit i32[N], n_over) in the same order."""
+    sorted order; ``key_s`` is their current Morton key.  ``active_s``
+    (hybrid: the undecided mask in the same order) zeroes the candidate
+    counts of the other lanes, so they neither collide nor overflow into
+    the rescue; every lane is integrated.  Returns (pos', vel', hit
+    i32[N], n_over) in the same order."""
     cfg = sp.cfg
     n = pos_s.shape[-1]
     if n % BLOCK:
@@ -531,12 +678,13 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
     nb = n // BLOCK
     if sp.ctab is not None:
         rel, count, ws, k_cap, overflow, ovf_count = _window_plan_coded(
-            key_s, sp.ctab, sp.window, nb, demote=sp.demote
+            key_s, sp.ctab, sp.window, nb, active_s=active_s, demote=sp.demote
         )
     else:
         cid_s = cell_index(lookup_pos(pos_s, vel_s, cfg.dt), sp.meta)
         rel, count, ws, k_cap, overflow, ovf_count = _window_plan(
-            cid_s, sp.tables.cells2, sp.window, nb, demote=sp.demote
+            cid_s, sp.tables.cells2, sp.window, nb, active_s=active_s,
+            demote=sp.demote
         )
     kernel_out = window_collide_sorted(
         pos_s, vel_s, radius_s, restit_s, rel, count, ws, k_cap, sp.tables,
@@ -552,10 +700,7 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
     )
 
 
-def _refuse(mesh=None, camera=None):
-    if camera is not None:
-        raise NotImplementedError(
-            "hybrid (camera=) is not ported yet: ROADMAP.md queue A6")
+def _refuse(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "multi-device (mesh=) is not ported yet: ROADMAP.md queue A9")
@@ -586,17 +731,61 @@ def make_spatial_step_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
         cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
     )
+    return _sorted_step(sp, None, with_stats)
+
+
+def make_hybrid_step_sorted(
+    triangles,
+    cfg: SimConfig,
+    camera,
+    normals=None,
+    *,
+    window: int | None = None,
+    fallback_capacity: int = 1024,
+    with_stats: bool = False,
+    mesh=None,
+    cells_lookup: str = "auto",
+    dense_demote: "int | None | str" = "auto",
+    device="cuda",
+):
+    """Hybrid method with the sorted window pipeline as the exact stage:
+    the screen-space stage, then the sorted spatial step with the
+    candidate counts of decided particles zeroed (the undecided mask
+    rides the sort as a payload row).  Integration is fused into the
+    window kernel for every particle.  Options as in
+    ``make_spatial_step_sorted``."""
+    _refuse(mesh=mesh)
+    sp = _build_sorted(
+        triangles, cfg, window=window, fallback_capacity=fallback_capacity,
+        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+    )
+    return _sorted_step(sp, bake_camera(triangles, camera, normals,
+                                        device=sp.gravity.device), with_stats)
+
+
+def _sorted_step(sp: _Sorted, tex, with_stats: bool):
+    """One sorted step per call, state in and out in the caller's
+    particle order; with camera textures ``tex``, the hybrid step."""
+    cfg = sp.cfg
     syncs = HostSyncs()
 
     def step(state: ParticleState):
+        parts = []
+        if tex is not None:
+            state, undecided = screen_space_collide(
+                state, tex, sp.gravity, cfg.dt, hybrid=True)
+            parts = [undecided[None].to(torch.float32)]
         pos, vel = state.pos, state.vel
         key = morton_key(lookup_pos(pos, vel, cfg.dt), sp.meta)
         key_s, perm = torch.sort(key, stable=True)
         rows = torch.cat(
-            [pos, vel, state.radius[None], state.restitution[None]], dim=0
+            [pos, vel, state.radius[None], state.restitution[None], *parts],
+            dim=0,
         )[:, perm]
+        active_s = rows[8] > 0.5 if tex is not None else None
         pos_k, vel_k, hit_k, n_over = _collide_sorted(
-            sp, rows[0:3], rows[3:6], rows[6], rows[7], key_s, syncs
+            sp, rows[0:3], rows[3:6], rows[6], rows[7], key_s, syncs,
+            active_s=active_s,
         )
         # unsort back to the caller's particle order
         new_pos = torch.empty_like(pos_k)
@@ -621,7 +810,7 @@ class SortedEpisodeRunner:
     ``steps`` count host reads and steps over all calls."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
-                 rescue_chunk: int, rescue_compact: bool):
+                 rescue_chunk: int, rescue_compact: bool, tex=None):
         if resort_every != "auto" and (
                 not isinstance(resort_every, int) or resort_every < 1):
             raise ValueError(f"resort_every must be a positive int or "
@@ -631,27 +820,48 @@ class SortedEpisodeRunner:
         self.resort_threshold = resort_threshold
         self.rescue_chunk = rescue_chunk
         self.rescue_compact = rescue_compact
+        self.tex = tex
         self.syncs = HostSyncs()
         self.steps = 0
 
-    def _collide(self, rows8, key_s):
+    def _collide(self, rows8, key_s, active_s):
         return _collide_sorted(
             self.sp, rows8[0:3], rows8[3:6], rows8[6], rows8[7], key_s,
-            self.syncs, rescue_chunk=self.rescue_chunk,
+            self.syncs, active_s=active_s, rescue_chunk=self.rescue_chunk,
             rescue_compact=self.rescue_compact,
         )
+
+    def _ss_stage(self, rows8, aux):
+        """Screen-space stage on the carried rows (hybrid): returns
+        (rows8', aux', undecided bool[N]) in the same order."""
+        st = ParticleState(pos=rows8[0:3], vel=rows8[3:6], collisions=aux[0],
+                           radius=rows8[6], restitution=rows8[7])
+        st, undecided = screen_space_collide(
+            st, self.tex, self.sp.gravity, self.sp.cfg.dt, hybrid=True)
+        rows8 = torch.cat([st.pos, st.vel, rows8[6:8]], dim=0)
+        return rows8, torch.stack([st.collisions, aux[1]]), undecided
 
     def _step(self, rows8, aux, do_sort: bool):
         """One step on the carried rows; with ``do_sort`` re-sort first,
         else keep the current (drifted) order -- sortedness is a locality
-        hint, the rescue redoes whatever no longer fits its window."""
+        hint, the rescue redoes whatever no longer fits its window.  In
+        hybrid mode the screen-space stage runs first and its undecided
+        mask follows the rows through the sort."""
+        active_s = None
+        if self.tex is not None:
+            rows8, aux, active_s = self._ss_stage(rows8, aux)
         dt = self.sp.cfg.dt
         key = morton_key(lookup_pos(rows8[0:3], rows8[3:6], dt), self.sp.meta)
         if do_sort:
             key, perm = torch.sort(key, stable=True)
             rows8 = rows8[:, perm]
-            aux = aux[:, perm]
-        pos_k, vel_k, hit_k, n_over = self._collide(rows8, key)
+            if active_s is None:
+                aux = aux[:, perm]
+            else:
+                # the mask rides the aux permute as a third row
+                aux3 = torch.cat([aux, active_s[None].to(torch.int32)])[:, perm]
+                aux, active_s = aux3[0:2], aux3[2] > 0
+        pos_k, vel_k, hit_k, n_over = self._collide(rows8, key, active_s)
         out8 = torch.cat([pos_k, vel_k, rows8[6:8]], dim=0)
         out_aux = torch.stack([aux[0] + hit_k, aux[1]])
         return out8, out_aux, n_over
@@ -709,6 +919,7 @@ def make_sorted_episode_runner(
     fallback_capacity: int = 1024,
     resort_every: "int | str" = 1,
     camera=None,
+    normals=None,
     mesh=None,
     cells_lookup: str = "auto",
     dense_demote: "int | None | str" = "auto",
@@ -729,17 +940,60 @@ def make_sorted_episode_runner(
     chunk (lanes).  ``rescue_compact``: build the phase-1 order by
     bounded compaction instead of a full-N argsort (identical order).
 
-    ``camera`` (hybrid) and ``mesh`` (multi-device) are not ported yet and
-    raise NotImplementedError.
+    ``camera`` (with ``normals``, the per-corner shading normals of the
+    pre-pass): each step runs the HYBRID method -- the screen-space stage
+    on the carried rows first, its undecided mask gating the exact stage,
+    as in ``make_hybrid_step_sorted`` without that step's sort and unsort
+    of every step.  ``mesh`` (multi-device) is not ported yet and raises
+    NotImplementedError.
     """
-    _refuse(mesh=mesh, camera=camera)
+    _refuse(mesh=mesh)
     check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
     sp = _build_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
         cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
     )
+    tex = None
+    if camera is not None:
+        tex = bake_camera(triangles, camera, normals, device=sp.gravity.device)
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
-                               rescue_chunk, rescue_compact)
+                               rescue_chunk, rescue_compact, tex=tex)
+
+
+def make_method_step(scene, method, camera_index: int = 0,
+                     spatial_variant: str = "auto", cells_lookup: str = "auto",
+                     device="cuda"):
+    """Factory over the three collision methods (ParticleSys.cs:667-698).
+
+    ``spatial_variant`` (spatial and hybrid): "auto" is the sorted window
+    pipeline when the device is CUDA (the kernels' path) and the packed
+    path on the CPU; or "sorted" / "packed" explicitly (spatial "dense"
+    and "stream" are not ported).  ``cells_lookup``: the sorted variant's
+    (start, count) lookup plan ("auto" / "gather" / "kernel"); the packed
+    path has none and ignores it.
+    """
+    method = Method(method)
+    cfg = scene.config
+    dev = resolve_device(device)
+    check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
+    v = spatial_variant
+    if v == "auto":
+        v = "sorted" if dev.type == "cuda" else "packed"
+    if method == Method.SPATIAL:
+        if v == "sorted":
+            return make_spatial_step_sorted(
+                scene.triangles, cfg, cells_lookup=cells_lookup, device=dev)
+        return make_spatial_step_grid(scene.triangles, cfg, variant=v, device=dev)
+    camera = scene.cameras[camera_index]
+    normals = getattr(scene, "corner_normals", None)
+    if method == Method.SCREEN_SPACE:
+        return make_screenspace_step(scene.triangles, cfg, camera, normals,
+                                     device=dev)
+    if v == "sorted":
+        return make_hybrid_step_sorted(scene.triangles, cfg, camera, normals,
+                                       cells_lookup=cells_lookup, device=dev)
+    # as in the JAX package, every other variant is the packed hybrid step
+    return make_hybrid_step(scene.triangles, cfg, camera, normals, device=dev)
 
 
 # ------------------------------------------------- particle-particle ----

@@ -194,7 +194,7 @@ def _build_native(triangles, cfg: GridConfig, margin: float, device):
 
 
 class PackedGrid(NamedTuple):
-    """Planar packed layout of the CSR grid for the phase-2 rescue path.
+    """Planar packed layout of the CSR grid for the phase-3 rescue path.
 
     rows:  f32[group * 9, Pg]  (v0 v1 v2 xyz per candidate slot;
            sentinel 1e38 columns beyond each cell's count)

@@ -15,7 +15,7 @@ evaluated unconditionally over the candidate axis; comparison chains use
 the reference's "keep previous unless strictly nearer" semantics, so NaN
 lanes (parallel rays, etc.) lose exactly as their IEEE comparisons fail.
 
-This is the plain PyTorch path of the phase-2 rescue
+This is the plain PyTorch path of the phase-3 rescue
 (core/step.py::spatial_collide_packed).
 """
 

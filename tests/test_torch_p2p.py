@@ -33,6 +33,7 @@ from particlesystemhybridcollisiondetection_tpu_torch import convert
 from particlesystemhybridcollisiondetection_tpu_torch.bench import configs as tconfigs
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
 from particlesystemhybridcollisiondetection_tpu_torch.core.step import make_p2p_step
+from particlesystemhybridcollisiondetection_tpu_torch.geometry import scenes as tscenes
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as tp2p
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as tpg
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_dense import (
@@ -285,14 +286,16 @@ def test_make_p2p_step_auto_and_refusals():
             tconfigs._box_state(10, (0, 0, 0), (8, 8, 8), 0.4, 0.3)
 
 
-def test_configs_run_small_and_unported_raise():
+def test_configs_run_small_and_unported_raise(monkeypatch, tmp_path):
     out = tconfigs.config_2(steps=3, n=400, device="cpu")
     assert out["config"] == 2 and out["particles"] == 400
     assert out["variant"] == "sorted" and out["cell_overflow_last_step"] == 0
     out = tconfigs.config_1(steps=2, n=128, device="cpu")
     assert out["config"] == 1 and out["grid_steps_per_sec"] > 0
     assert set(tconfigs.CONFIGS) == {1, 2, 3, 4, 5}
-    with pytest.raises(NotImplementedError, match="A6"):
-        tconfigs.CONFIGS[3]()
+    # config 3 (hybrid) is ported; without the bunny mesh it cannot load
+    monkeypatch.setattr(tscenes, "_REFERENCE_MESH_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        tconfigs.CONFIGS[3](device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         tconfigs.CONFIGS[5]()

@@ -80,34 +80,47 @@ def test_sorted_step_matches_jax(fast, jax_traj, cells_lookup):
     assert hits > 0
 
 
-def test_rescue_phases_match_jax_under_overflow(fast, monkeypatch):
-    """Window 128 on a denser, jittered spawn (16 x 16 particles at
-    spacing 0.25, numpy jitter from seed 1; 47 steps in, as the first
-    impacts land): overflow everywhere, and both rescue phases run --
-    phase 1 relaunches the window kernel on Morton-compacted lanes, phase
-    2 takes the packed path.  Port gather and kernel plans agree bitwise,
-    and with the JAX step on the same state.  (Later steps of this spawn
-    hit shared-edge near-ties that round differently under XLA's fused
-    multiply-adds: ROADMAP.md C.)"""
+@pytest.fixture(scope="module")
+def dense_probe(fast):
+    """A denser, jittered spawn (16 x 16 particles at spacing 0.25, numpy
+    jitter from seed 1) 47 steps in, as the first impacts land: its
+    config and numpy state."""
     cfg = dataclasses.replace(fast.config, num_particles_xz=16, offset_xz=0.25)
     main = tstep.make_spatial_step_sorted(fast.triangles, cfg, device="cpu")
     s = spawn_grid(cfg, 1, jitter=0.35, seed=1, device="cpu")
     for _ in range(47):
         s = main(s)
-    probe = convert.state_to_numpy(s)
+    return cfg, convert.state_to_numpy(s)
 
-    calls = {"window": 0, "packed": 0}
-    wcs, scp = tstep.window_collide_sorted, tstep.spatial_collide_packed
+
+def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
+    """Window 128 on the dense probe: overflow everywhere, and both
+    rescue phases that fitting cells need run -- phase 1 relaunches the
+    window kernel on Morton-compacted lanes, phase 2 relaunches it one
+    lane per row; no cell of this scene needs phase 3 (the packed path).
+    Port gather and kernel plans agree bitwise, and with the JAX step on
+    the same state.  (Later steps of this spawn hit shared-edge near-ties
+    that round differently under XLA's fused multiply-adds: ROADMAP.md
+    C.)"""
+    cfg, probe = dense_probe
+    calls = {"window": 0, "isolated": 0, "packed": 0}
+    wcs, iso = tstep.window_collide_sorted, tstep._isolated_plan
+    scp = tstep.spatial_collide_packed
 
     def count_window(*a, **k):
         calls["window"] += 1
         return wcs(*a, **k)
+
+    def count_isolated(*a, **k):
+        calls["isolated"] += 1
+        return iso(*a, **k)
 
     def count_packed(*a, **k):
         calls["packed"] += 1
         return scp(*a, **k)
 
     monkeypatch.setattr(tstep, "window_collide_sorted", count_window)
+    monkeypatch.setattr(tstep, "_isolated_plan", count_isolated)
     monkeypatch.setattr(tstep, "spatial_collide_packed", count_packed)
     outs = {}
     for plan in ("gather", "kernel"):
@@ -117,7 +130,8 @@ def test_rescue_phases_match_jax_under_overflow(fast, monkeypatch):
         out, st = step(convert.state_from_numpy(probe, device="cpu"))
         assert st["window_overflow"] > 0
         outs[plan] = convert.state_to_numpy(out)
-    assert calls["window"] >= 4 and calls["packed"] >= 2, calls
+    assert calls["window"] >= 6 and calls["isolated"] >= 2, calls
+    assert calls["packed"] == 0, calls
     for f in ("pos", "vel", "collisions"):
         np.testing.assert_array_equal(outs["kernel"][f], outs["gather"][f], err_msg=f)
 
@@ -128,6 +142,62 @@ def test_rescue_phases_match_jax_under_overflow(fast, monkeypatch):
     assert (want["collisions"] - probe["collisions"]).sum() > 0
     np.testing.assert_array_equal(outs["gather"]["collisions"], want["collisions"])
     np.testing.assert_allclose(outs["gather"]["pos"][:, mask], want["pos"][:, mask],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
+    """Every route of a lane through the window kernel gives the same
+    bits: with every phase-1 chunk refused (all of its lanes then take
+    phase 2, one lane per row) the step equals the default step bit for
+    bit.  With phase 2 refused too, phase 3 (the packed path, for cells
+    larger than the rescue window) takes the lanes: exact collisions,
+    positions within rtol 1e-5 / atol 1e-6 (it rounds differently)."""
+    cfg, probe = dense_probe
+    mask = probe["pos"][0] < 1e37
+
+    def run():
+        step = tstep.make_spatial_step_sorted(fast.triangles, cfg, window=128,
+                                              with_stats=True, device="cpu")
+        out, st = step(convert.state_from_numpy(probe, device="cpu"))
+        assert st["window_overflow"] > 0
+        return convert.state_to_numpy(out)
+
+    base = run()
+    assert (base["collisions"] - probe["collisions"]).sum() > 0
+    rc, iso = tstep._rescue_chunk, tstep._isolated_plan
+    calls = {"isolated": 0, "packed": 0}
+
+    def refuse_chunk(*a, **k):
+        redo, chunk, (rel, cnt, ws, k_cap, unfit) = rc(*a, **k)
+        return redo, chunk, (rel, cnt, ws, k_cap, torch.ones_like(unfit))
+
+    def count_isolated(*a, **k):
+        calls["isolated"] += 1
+        return iso(*a, **k)
+
+    monkeypatch.setattr(tstep, "_rescue_chunk", refuse_chunk)
+    monkeypatch.setattr(tstep, "_isolated_plan", count_isolated)
+    phase2 = run()
+    assert calls["isolated"] >= 1
+    for f in ("pos", "vel", "collisions"):
+        np.testing.assert_array_equal(phase2[f], base[f], err_msg=f)
+
+    scp = tstep.spatial_collide_packed
+
+    def refuse_isolated(*a, **k):
+        args, fit = iso(*a, **k)
+        return args, torch.zeros_like(fit)
+
+    def count_packed(*a, **k):
+        calls["packed"] += 1
+        return scp(*a, **k)
+
+    monkeypatch.setattr(tstep, "_isolated_plan", refuse_isolated)
+    monkeypatch.setattr(tstep, "spatial_collide_packed", count_packed)
+    phase3 = run()
+    assert calls["packed"] >= 1
+    np.testing.assert_array_equal(phase3["collisions"], base["collisions"])
+    np.testing.assert_allclose(phase3["pos"][:, mask], base["pos"][:, mask],
                                rtol=1e-5, atol=1e-6)
 
 
@@ -201,14 +271,14 @@ def test_runner_matches_per_step_and_jax(fast):
 
 def test_unported_options_raise(fast):
     cfg = fast.config
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A9"):
         tstep.make_sorted_episode_runner(fast.triangles, cfg, camera=fast.cameras[0],
-                                         device="cpu")
+                                         mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         tstep.make_spatial_step_sorted(fast.triangles, cfg, mesh=object(),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tharness.run_episode(fast, "hybrid", device="cpu")
+    with pytest.raises(NotImplementedError, match="A2/A3"):
+        tstep.make_method_step(fast, "spatial", spatial_variant="dense", device="cpu")
 
 
 def test_run_episode_spatial_on_cpu(fast):
