@@ -45,6 +45,25 @@ Phases (each raises on failure; nothing is caught and passed over):
      versions on every lane (window 512, and 128 where lanes overflow),
      the overflow mask included, and p2p_collide_window against
      p2p_collide_sorted; time both;
+  8. (after 6, in the same process) drive the port's command line
+     (``drive_cli``), every sub-step through ``cli.main`` with the default
+     device (CUDA), checked and timed: ``bench`` of the three methods on
+     DragonScene at 1,048,576 particles, camera 0, 200 steps (full width,
+     depth cut from 2001), with the accuracy CSV (three perf-CSV blocks of
+     199 rows, three accuracy blocks of 1,048,576 rows, summary totals
+     equal to the printed results and to the accuracy blocks, B1 and B2
+     launched); ``bench --per-step`` of the spatial method, 50 steps (the
+     non-persistent ``make_method_step`` path); ``simulate`` of the
+     spatial method, 100 steps, with a checkpoint that must equal a fresh
+     run's ``snapshot`` bit for bit; ``p2pbox`` at 1,000,000 particles, 50
+     steps (B3 once per step).  Then, on the spatial state at step 650,
+     the oracle steps: "stream" against "packed" on every lane (hits equal
+     but for near ties, counted), "dense" against "stream" on the 65,536
+     active lanes whose cells hold the most candidates, brute force
+     against "stream" on 4,096 lanes (the hit lanes first); and the
+     ``ResilientRunner`` over 200 sorted steps with one injected device
+     loss, equal bit for bit to an uninterrupted run.  The launches of
+     each command go into the kernel line as ``launches_cli``;
   7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
@@ -88,6 +107,14 @@ P2P_N = 1_000_000
 P2P_BOX = ((0.0, 0.0, 0.0), (160.0, 80.0, 160.0))
 P2P_STEPS, P2P_SNAP_STEP, P2P_RUNNER_STEPS = 200, 100, 50
 P2P_SMALL_WINDOW = 128  # small enough that lanes overflow their window
+# phase 8, the command line at full width (DragonScene, 128^2 x 64 =
+# 1,048,576 particles; depth cut to 200 steps for bench, 50 for --per-step,
+# 100 for simulate) and the oracle steps on the state at step 650
+CLI_LAYERS = 64
+CLI_STEPS, CLI_PER_STEP_STEPS, CLI_SIM_STEPS, CLI_P2P_STEPS = 200, 50, 100, 50
+CLI_DENSE_LANES = 65_536  # [N, K] f32 at K = 483 is 2 GB per temporary at 1M
+CLI_BF_LANES = 4_096  # each against all 397,688 triangles
+CLI_RESILIENT_STEPS, CLI_RESILIENT_FAIL_AT = 200, 120
 # float operations of the p2p window kernel (csrc/p2p_window_kernel.cu),
 # counted as above: per candidate, and per lane outside the loop (the
 # mass and the six final adds)
@@ -569,6 +596,289 @@ def drive_p2p(torch, card: str) -> list:
     return entries[:1]
 
 
+def run_cli(card: str, tag: str, argv: list) -> tuple:
+    """One command through the port's ``cli.main`` (default device,
+    CUDA), its output echoed; raises on a non-zero return.  Returns
+    (stdout text, wall seconds)."""
+    import contextlib
+    import io
+
+    from particlesystemhybridcollisiondetection_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines()[-8:]:
+        print(f"  {line}")
+    print(f"[{card}] cli {tag}: `{' '.join(argv)}` returned {rc} in {wall:.2f} s")
+    if rc != 0:
+        raise RuntimeError(f"cli {tag} returned {rc}")
+    return text, wall
+
+
+def drive_cli(torch, card: str, snap) -> dict:
+    """Phase 8: the command line on the card (every sub-step through
+    ``cli.main`` with the default device, each checked and timed), then
+    the oracle steps on ``snap`` (the spatial state at step 650) and the
+    resilient runner.  Returns the launches of each sub-step."""
+    import re
+    import shutil
+    import tempfile
+
+    from particlesystemhybridcollisiondetection_tpu_torch.bench.harness import METHOD_NAMES
+    from particlesystemhybridcollisiondetection_tpu_torch.bench import resilient as R
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+        ParticleState, active_mask, snapshot, spawn_grid,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import grid as G
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import narrow_phase as NP
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        p2p_window_kernel as pk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.io import load_state
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    t_phase = time.perf_counter()
+    scene = dragon_scene()
+    tmp = tempfile.mkdtemp(prefix="psys_cli_")
+    launches = {}
+    n_full = scene.config.spawn_count(CLI_LAYERS)
+    scene_args = ["--scene", "dragon", "--layers", str(CLI_LAYERS)]
+    try:
+        # ---- 8.1: bench, three methods, accuracy CSV, full width ----
+        out1 = os.path.join(tmp, "bench")
+        wk.reset_launches()
+        text, _ = run_cli(card, "bench", [
+            "bench", *scene_args, "--methods", "screen_space,spatial,hybrid",
+            "--cameras", "0", "--steps", str(CLI_STEPS), "--runs", "1",
+            "--accuracy", "--out", out1])
+        launches["bench"] = dict(wk.LAUNCHES)
+        printed = {m: (float(ms), int(c)) for m, ms, c in re.findall(
+            r"^(\w+)\s.*?\s([\d.]+) ms/step .* collisions=(\d+)$", text, re.M)}
+        if set(printed) != {"screen_space", "spatial", "hybrid"}:
+            raise RuntimeError(f"bench printed {sorted(printed)}")
+        names = [METHOD_NAMES[m] for m in ("screen_space", "spatial", "hybrid")]
+        with open(os.path.join(out1, f"results_perf_{scene.name}_{n_full}.csv")) as f:
+            perf = f.read().splitlines()
+        want = []
+        for name in names:
+            want += [f"{name};ms"] + [str(i) for i in range(CLI_STEPS - 1)]
+        if [x.split(";")[0] if ";ms" not in x else x for x in perf] != want:
+            raise RuntimeError("perf CSV: not three method blocks of "
+                               f"{CLI_STEPS - 1} rows")
+        with open(os.path.join(out1, f"results_acc_{scene.name}_{n_full}.csv")) as f:
+            acc = f.read().splitlines()
+        block = n_full + 1
+        if len(acc) != 3 * block or [acc[i * block] for i in range(3)] != [
+                f"{n};collisions" for n in names]:
+            raise RuntimeError(f"accuracy CSV: {len(acc)} lines, not 3 blocks of "
+                               f"1 + {n_full}")
+        acc_sum = [sum(int(x.rsplit(";", 1)[1]) for x in acc[i * block + 1:(i + 1) * block])
+                   for i in range(3)]
+        with open(os.path.join(out1, f"summary_{scene.name}.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join(out1, f"aggregate_{scene.name}.json")) as f:
+            aggregate = json.load(f)
+        got = {r["method"]: r["total_collisions"] for r in summary}
+        want_c = {m: c for m, (_, c) in printed.items()}
+        if len(summary) != 3 or got != want_c or acc_sum != [
+                want_c[m] for m in ("screen_space", "spatial", "hybrid")]:
+            raise RuntimeError(f"summary {got} / accuracy CSV {acc_sum} / printed "
+                               f"{want_c} disagree")
+        if len(aggregate) != 3 or {r["num_particles"] for r in aggregate} != {n_full}:
+            raise RuntimeError(f"aggregate rows {aggregate}")
+        if min(launches["bench"].values()) <= 0:
+            raise RuntimeError(f"bench launches {launches['bench']}: a kernel of "
+                               "the path never launched")
+        print(f"[{card}] bench via the CLI, {n_full} particles, steps 2-{CLI_STEPS}: "
+              + ", ".join(f"{m} {ms:.3f} ms/step ({c} collisions)"
+                          for m, (ms, c) in printed.items())
+              + f"; launches {launches['bench']}; perf CSV {len(perf)} lines, accuracy "
+              f"CSV {len(acc)} lines")
+
+        # ---- 8.2: --per-step, the non-persistent make_method_step path ----
+        wk.reset_launches()
+        text, _ = run_cli(card, "bench --per-step", [
+            "bench", *scene_args, "--methods", "spatial", "--cameras", "0",
+            "--steps", str(CLI_PER_STEP_STEPS), "--per-step",
+            "--out", os.path.join(tmp, "per_step")])
+        launches["per_step"] = dict(wk.LAUNCHES)
+        per_ms = float(re.search(r"([\d.]+) ms/step", text).group(1))
+        if min(launches["per_step"].values()) <= 0:
+            raise RuntimeError(f"--per-step launches {launches['per_step']}")
+        print(f"[{card}] spatial ms/step: --per-step (make_method_step, a sync per "
+              f"step, steps 2-{CLI_PER_STEP_STEPS}) {per_ms:.3f}, persistent runner "
+              f"(steps 2-{CLI_STEPS}) {printed['spatial'][0]:.3f}")
+
+        # ---- 8.3: simulate with a checkpoint (make_episode_runner) ----
+        out3 = os.path.join(tmp, "simulate")
+        wk.reset_launches()
+        run_cli(card, "simulate", [
+            "simulate", *scene_args, "--method", "spatial",
+            "--steps", str(CLI_SIM_STEPS), "--checkpoint", "--out", out3])
+        launches["simulate"] = dict(wk.LAUNCHES)
+        if min(launches["simulate"].values()) <= 0:
+            raise RuntimeError(f"simulate launches {launches['simulate']}")
+        again = S.make_episode_runner(S.make_method_step(scene, "spatial"),
+                                      CLI_SIM_STEPS)(spawn_grid(scene.config, CLI_LAYERS))
+        fresh = snapshot(again)
+        ckpt = snapshot(load_state(os.path.join(out3, f"state_{CLI_SIM_STEPS:06d}.npz")))
+        bad = [k for k in fresh if fresh[k].dtype != ckpt[k].dtype
+               or not (fresh[k] == ckpt[k]).all()]
+        print(f"[{card}] simulate checkpoint at step {CLI_SIM_STEPS} against a fresh "
+              f"run's snapshot: fields differing {bad or 'none'}")
+        if bad:
+            raise RuntimeError(f"checkpoint differs from the fresh run in {bad}")
+
+        # ---- 8.4: p2pbox at 1,000,000 particles ----
+        pk.reset_launches()
+        text, _ = run_cli(card, "p2pbox", [
+            "p2pbox", "--particles", str(P2P_N), "--steps", str(CLI_P2P_STEPS)])
+        launches["p2pbox"] = dict(pk.LAUNCHES)
+        box = json.loads(text.strip().splitlines()[-1])
+        want_b3 = {"p2p_window_collide_sorted": 0,
+                   "p2p_window_collide_cells": CLI_P2P_STEPS + 1}
+        if launches["p2pbox"] != want_b3 or box["contacts"] <= 0:
+            raise RuntimeError(f"p2pbox launches {launches['p2pbox']} (want "
+                               f"{want_b3}), contacts {box['contacts']}")
+        print(f"[{card}] p2pbox {P2P_N}: {box['ms_per_step']:.3f} ms/step, contacts "
+              f"{box['contacts']}, B3 launches {launches['p2pbox']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 8.5: the oracle steps on the spatial state at step 650 ----
+    cfg = scene.config
+    n = snap.pos.shape[-1]
+    mask = active_mask(snap)
+    grid, meta = G.build_triangle_grid(scene.triangles, cfg.grid, device=snap.pos.device)
+
+    def one_step(tag, step, state):
+        fence(state.pos)
+        t0 = time.perf_counter()
+        out = step(state)
+        fence(out.pos)
+        ms = (time.perf_counter() - t0) * 1000.0
+        print(f"[{card}] {tag}: one step on {state.pos.shape[-1]} lanes {ms:.1f} ms, "
+              f"hits {int((out.collisions - state.collisions).sum())}")
+        return out, ms
+
+    def lanes(state, idx):
+        return ParticleState(*(x[..., idx] for x in state))
+
+    def top_t2(state, idx):
+        """Best and second-best t^2 over each lane's grid candidates."""
+        st = lanes(state, idx)
+        speed2 = (st.vel * st.vel).sum(0)
+        dirn = st.vel / torch.sqrt(speed2)[None]
+        v0, v1, v2, cm = G.gather_candidates(grid, meta, G.lookup_pos(st.pos, st.vel, cfg.dt))
+        h = NP.particle_vs_triangles(st.pos, dirn, speed2 * cfg.dt * cfg.dt, v0, v1, v2,
+                                     st.radius)
+        t2 = torch.where(h.hit & cm, h.t2, float("inf"))
+        two = torch.topk(t2, 2, dim=1, largest=False).values
+        return two[:, 0], two[:, 1]
+
+    stream_step = S.make_spatial_step_grid(scene.triangles, cfg, "stream")
+    packed_step = S.make_spatial_step_grid(scene.triangles, cfg, "packed")
+    o_stream, ms_stream = one_step("stream", stream_step, snap)
+    o_packed, ms_packed = one_step("packed", packed_step, snap)
+    hit_s = o_stream.collisions - snap.collisions
+    hit_p = o_packed.collisions - snap.collisions
+    hit_lanes = torch.nonzero((hit_s + hit_p) > 0).flatten()
+    b0, b1 = top_t2(snap, hit_lanes)
+    near = (b1 - b0) <= 1e-5 * b0
+    differ = torch.nonzero(hit_s != hit_p).flatten()
+    differ_near = int(torch.isin(differ, hit_lanes[near]).sum())
+    close = torch.isclose(o_stream.pos, o_packed.pos, rtol=1e-5, atol=1e-6).all(0)
+    bits = lane_diff(torch, o_stream.pos[:, mask], o_packed.pos[:, mask])
+    print(f"[{card}] stream vs packed on {n} lanes: hits differ on {differ.numel()} "
+          f"lanes ({differ_near} of them near ties), pos outside rtol 1e-5 atol 1e-6 "
+          f"on {int((~close & mask).sum())} active lanes, differ in any bit on {bits}; "
+          f"near ties (best and second t^2 within rtol 1e-5) among the "
+          f"{hit_lanes.numel()} hit lanes: {int(near.sum())}")
+    if differ.numel() != differ_near or int((~close & mask).sum()):
+        raise RuntimeError("the stream step disagrees with the packed step")
+
+    count = (grid.offsets[1:] - grid.offsets[:-1])[
+        G.cell_index(G.lookup_pos(snap.pos, snap.vel, cfg.dt), meta).long()]
+    busy = torch.argsort(torch.where(mask, count, -1), descending=True, stable=True)
+    dense_idx = torch.sort(busy[:CLI_DENSE_LANES]).values
+    dense_step = S.make_spatial_step_grid(scene.triangles, cfg, "dense")
+    o_dense, ms_dense = one_step("dense (slice)", dense_step, lanes(snap, dense_idx))
+    o_sd = lanes(o_stream, dense_idx)  # lanes are independent of each other
+    dense_bits = sum(lane_diff(torch, a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+                     for a, b in zip(o_dense, o_sd))
+    print(f"[{card}] dense vs stream on the {CLI_DENSE_LANES} active lanes whose cells "
+          f"hold the most candidates ({int(count[dense_idx].min())}-"
+          f"{int(count[dense_idx].max())}): lanes differing in any bit {dense_bits}")
+    if dense_bits:
+        raise RuntimeError("the dense step disagrees with the stream step")
+
+    # the lanes that hit in either step, then the active lanes whose cells
+    # hold the most candidates
+    order = torch.cat([hit_lanes, busy[~torch.isin(busy, hit_lanes)]])
+    bf_idx = torch.sort(order[:CLI_BF_LANES]).values
+    bf_step = S.make_spatial_step_bruteforce(scene.triangles, cfg)
+    o_bf, ms_bf = one_step("brute force (4,096 lanes)", bf_step, lanes(snap, bf_idx))
+    o_sb = lanes(o_stream, bf_idx)
+    hit_bf = o_bf.collisions - snap.collisions[bf_idx]
+    hit_sb = o_sb.collisions - snap.collisions[bf_idx]
+    bf_far = int((~torch.isclose(o_bf.pos, o_sb.pos, rtol=1e-5, atol=1e-6).all(0)).sum())
+    print(f"[{card}] brute force vs stream on {bf_idx.numel()} lanes "
+          f"({int((hit_sb > 0).sum())} hit in the stream step): hit sets differ on "
+          f"{int((hit_bf != hit_sb).sum())} lanes, pos outside rtol 1e-5 atol 1e-6 "
+          f"on {bf_far}")
+    if int((hit_bf != hit_sb).sum()):
+        raise RuntimeError("the grid misses a hit that brute force finds")
+
+    # ---- 8.6: ResilientRunner, one injected device loss ----
+    state0 = spawn_grid(cfg, CLI_LAYERS)
+    calls = {"n": 0, "made": 0}
+    err = R.DEVICE_ERRORS[0]
+
+    def factory():
+        calls["made"] += 1
+        first = calls["made"] == 1
+        step = S.make_spatial_step_sorted(scene.triangles, cfg, cells_lookup="kernel")
+
+        def wrapped(s):
+            calls["n"] += 1
+            if first and calls["n"] == CLI_RESILIENT_FAIL_AT:
+                raise err("injected CUDA device loss")
+            return step(s)
+
+        return wrapped
+
+    t0 = time.perf_counter()
+    runner = R.ResilientRunner(factory, chunk=50, max_retries=2, retry_wait_s=30.0)
+    out = runner.run(state0, CLI_RESILIENT_STEPS)
+    fence(out.pos)
+    res_s = time.perf_counter() - t0
+    ref = S.make_episode_runner(S.make_spatial_step_sorted(
+        scene.triangles, cfg, cells_lookup="kernel"), CLI_RESILIENT_STEPS)(state0)
+    diff = sum(lane_diff(torch, a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+               for a, b in zip(out, ref))
+    print(f"[{card}] ResilientRunner, {CLI_RESILIENT_STEPS} sorted steps with one "
+          f"injected {err.__name__} at call {CLI_RESILIENT_FAIL_AT}: recoveries "
+          f"{runner.recoveries}, {res_s:.2f} s; lanes differing in any bit from an "
+          f"uninterrupted run {diff}")
+    if runner.recoveries != 1 or diff:
+        raise RuntimeError("the resilient runner's result is not the uninterrupted one")
+    print(f"[{card}] phase 8 (command line, oracles, resilient runner): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "ms": {"stream": ms_stream, "packed": ms_packed,
+                                         "dense": ms_dense, "bruteforce": ms_bf}}
+
+
 def main() -> int:
     import torch
 
@@ -597,6 +907,10 @@ def main() -> int:
         lookup_pos, morton_key,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    # bakes go to the checkout's build directory unless the caller says
+    os.environ.setdefault("PSYS_BAKE_CACHE", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "psys_bake"))
 
     # ---- phase 1: card, versions, kernel build ----
     card = card_line()
@@ -839,6 +1153,13 @@ def main() -> int:
     # ---- phase 6: the particle-particle path ----
     b3 = drive_p2p(torch, card)
 
+    # ---- phase 8: the command line, the oracle steps, the resilient runner ----
+    cli = drive_cli(torch, card, snap)
+
+    def cli_launches(key):
+        return {sub: counts[key] for sub, counts in cli["launches"].items()
+                if key in counts}
+
     b1_total = launches["window_collide_sorted"]
 
     def b1_entry(suffix, numbers, n_launch, phase2=None):
@@ -861,8 +1182,10 @@ def main() -> int:
 
     h_launch = hyb["launches"]
     kernels = [
-        b2_entry("", b2, launches["cells_window_lookup"]),
-        b1_entry("", b1[("main", SNAP_STEP)], b1_total),
+        {**b2_entry("", b2, launches["cells_window_lookup"]),
+         "launches_cli": cli_launches("cells_window_lookup")},
+        {**b1_entry("", b1[("main", SNAP_STEP)], b1_total),
+         "launches_cli": cli_launches("window_collide_sorted")},
         b1_entry(":rescue_chunk", b1[("rescue chunk", SNAP_STEP)], b1_total - N_STEPS,
                  b1[("one lane per row", SNAP_STEP)]),
         b1_entry(":main_step700", b1[("main", N_STEPS)], N_STEPS),
@@ -877,7 +1200,8 @@ def main() -> int:
         {**b1_entry(":hybrid_rescue_chunk", hyb["b1"]["rescue chunk"],
                     h_launch["window_collide_sorted"] - N_STEPS,
                     hyb["b1"]["one lane per row"]), "path": "hybrid"},
-        *b3,
+        {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
+        *b3[1:],
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,9 +1,10 @@
 """Carry particle state and grid tables across from NumPy.
 
-The dicts and arrays here are what the JAX package produces
-(``core/state.py::snapshot``; the fields of its ``TriangleGrid``,
-``GridMeta`` and ``PGridMeta``), so a test can feed both packages the same inputs.  Only
-NumPy crosses the boundary: nothing here imports JAX.
+The dicts and arrays here are what the JAX package produces (its
+``core/state.py::snapshot``, which the port's ``snapshot`` gives back;
+the fields of its ``TriangleGrid``, ``GridMeta`` and ``PGridMeta``), so
+a test can feed both packages the same inputs.  Only NumPy crosses the
+boundary: nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -41,11 +42,6 @@ def state_from_numpy(d: dict, device="cuda") -> ParticleState:
             raise ValueError(f"{k} has dtype {a.dtype}, expected {np.dtype(dt)}")
         fields[k] = torch.tensor(a, device=dev)  # a copy
     return ParticleState(**fields)
-
-
-def state_to_numpy(s: ParticleState) -> dict:
-    """Host-side dict of numpy arrays (the JAX package's snapshot form)."""
-    return {k: v.detach().cpu().numpy() for k, v in s._asdict().items()}
 
 
 def grid_from_numpy(offsets, tri_ids, v0, v1, v2, meta_fields: dict,

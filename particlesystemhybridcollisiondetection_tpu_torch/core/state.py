@@ -137,3 +137,25 @@ def active_mask(state: ParticleState) -> torch.Tensor:
     position magnitude, not a stored count.
     """
     return torch.abs(state.pos[0]) < FLOAT_SENTINEL * 0.5
+
+
+def reset_episode(state: ParticleState, initial: ParticleState) -> ParticleState:
+    """Episode reset: re-upload initial pos/vel (ParticleSys.cs:520-526).
+
+    Collision counters are preserved, matching the reference (they are
+    only reset by ResetBenchmarkCollisons, BenchmarkManager.cs:160).
+    """
+    return state._replace(pos=initial.pos, vel=initial.vel)
+
+
+def snapshot(state: ParticleState) -> dict:
+    """Checkpoint: a host-side dict of numpy arrays (np.savez-able), with
+    the JAX package's keys and dtypes."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def restore(data: dict, device="cuda") -> ParticleState:
+    """ParticleState on ``device`` from a ``snapshot`` dict (copies)."""
+    dev = resolve_device(device)
+    return ParticleState(
+        **{k: torch.tensor(np.asarray(v), device=dev) for k, v in data.items()})

@@ -2,8 +2,10 @@
 persistent episode runner, and the particle-particle gravity-box step
 and its episode runner.
 
-Port of the JAX package's ``core/step.py``: the packed grid step
-(``make_spatial_step_grid``), the screen-space and hybrid steps, the
+Port of the JAX package's ``core/step.py``: the brute-force oracle step
+(``make_spatial_step_bruteforce``), the grid steps
+(``make_spatial_step_grid``: packed, stream, dense), the screen-space and
+hybrid steps, the episode and trajectory runners, the
 sorted pipeline (spatial and hybrid), the runner with its ``camera=``
 (hybrid) stage, and the p2p entry points (``make_p2p_step``,
 ``make_p2p_episode_runner``, at the end of this file).  The hybrid
@@ -62,6 +64,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
     _morton_spread,
     build_triangle_grid,
     cell_index,
+    gather_candidates,
     lookup_pos,
     morton_key,
     pack_grid,
@@ -89,6 +92,159 @@ class HostSyncs:
         return int(t.item())
 
 
+# candidate-lane elements the oracle paths and the packed path evaluate
+# at once: each of the narrow phase's temporaries is then 16 MiB of f32.
+# Lanes are independent and chunks merge with the first-minimum rule, so
+# the chunking never changes a result.
+_CHUNK_ELEMS = 1 << 22
+
+
+def _merge_nearest(best, cand):
+    """Fold (t2, hit, t, normal) ``cand`` into ``best``: a later chunk of
+    candidates wins only when strictly nearer (first minimum overall)."""
+    if best is None:
+        return cand
+    take = cand[0] < best[0]
+    return (
+        torch.where(take, cand[0], best[0]),
+        torch.where(take, cand[1], best[1]),
+        torch.where(take, cand[2], best[2]),
+        vec.where(take, cand[3], best[3]),
+    )
+
+
+def spatial_collide(
+    state: ParticleState,
+    v0: torch.Tensor,
+    v1: torch.Tensor,
+    v2: torch.Tensor,
+    gravity: torch.Tensor,
+    dt: float,
+    backoff: float,
+    cand_mask: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+) -> ParticleState:
+    """Spatial-structure collision detection + response on a candidate set.
+
+    v0, v1, v2: [3, N, K] per-particle candidates, or [3, K] shared
+    candidates (every particle tests all of them: the brute-force path).
+    ``cand_mask``: bool[N, K] validity of each candidate.  ``active``:
+    bool[N] collide these particles only.  Evaluated in chunks of lanes
+    and candidates (``_CHUNK_ELEMS``), so a 400k-triangle brute force
+    fits in memory; the result is the unchunked one.
+    """
+    pos, velo = state.pos, state.vel
+    n, k = pos.shape[-1], v0.shape[-1]
+    speed2 = vec.dot(velo, velo)
+    dirn = vec.normalize(velo)  # NaN on vel == 0 lanes; masked below
+    seg_len2 = speed2 * (dt * dt)
+
+    lanes = max(1, min(n, _CHUNK_ELEMS // max(1, min(k, 1024))))
+    kc = max(1, min(k, _CHUNK_ELEMS // lanes))
+    parts = []
+    for a in range(0, n, lanes):
+        ln = slice(a, a + lanes)
+        best = None
+        for b in range(0, k, kc):
+            kn = slice(b, b + kc)
+            if v0.ndim == 2:  # shared candidates, broadcast over particles
+                c0, c1, c2 = (v[:, None, kn] for v in (v0, v1, v2))
+            else:
+                c0, c1, c2 = (v[:, ln, kn] for v in (v0, v1, v2))
+            hits = nphase.particle_vs_triangles(
+                pos[:, ln], dirn[:, ln], seg_len2[ln], c0, c1, c2,
+                state.radius[ln])
+            hit_mask = hits.hit
+            if cand_mask is not None:
+                hit_mask = hit_mask & cand_mask[ln, kn]
+            hits = hits._replace(
+                hit=hit_mask, t2=torch.where(hit_mask, hits.t2, float("inf")))
+            nh = nphase.nearest_hit(hits)
+            best = _merge_nearest(
+                best, (hits.t2.amin(dim=-1), nh.hit, nh.t, nh.normal))
+        parts.append(best)
+    _, hit, t, normal = (torch.cat(x, dim=-1) for x in zip(*parts))
+
+    # vel == 0 guard (SpatialStructureCollisionDetection.compute:237)
+    hit = hit & (speed2 != 0.0)
+    if active is not None:
+        hit = hit & active
+    new_pos, new_vel = nphase.spatial_response(
+        pos, velo, dirn, hit, t, normal, gravity, dt, state.radius,
+        state.restitution, backoff,
+    )
+    return state._replace(
+        pos=new_pos, vel=new_vel,
+        collisions=state.collisions + hit.to(torch.int32),
+    )
+
+
+def _planar_triangles(triangles, device):
+    """[T, 3, 3] host soup -> three [3, T] planar tensors on ``device``."""
+    tris = np.asarray(triangles, dtype=np.float32)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(tris[:, i, :].T)).to(device)
+        for i in range(3))
+
+
+def make_spatial_step_bruteforce(triangles, cfg: SimConfig, *, device="cuda"):
+    """Spatial method with every scene triangle as a candidate: O(N*T),
+    the validation oracle (the role of the reference's BVH as ground
+    truth).  Use the grid steps for real workloads."""
+    dev = resolve_device(device)
+    v0, v1, v2 = _planar_triangles(triangles, dev)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+
+    def step(state: ParticleState) -> ParticleState:
+        state = spatial_collide(state, v0, v1, v2, gravity, cfg.dt, cfg.backoff)
+        new_pos, new_vel = integrate(state.pos, state.vel, gravity, cfg.dt)
+        return state._replace(pos=new_pos, vel=new_vel)
+
+    return step
+
+
+def spatial_collide_stream(
+    state: ParticleState,
+    grid,
+    meta,
+    gravity: torch.Tensor,
+    dt: float,
+    backoff: float,
+    active: Optional[torch.Tensor] = None,
+) -> ParticleState:
+    """Grid spatial collision via the streaming narrow phase: one
+    candidate slot of every particle per iteration, [N]-shaped tensors
+    only (``narrow_phase.swept_collide_stream``), over all
+    ``meta.max_tris_per_cell`` slots."""
+    pos, velo = state.pos, state.vel
+    speed2 = vec.dot(velo, velo)
+    dirn = vec.normalize(velo)
+    seg_len2 = speed2 * (dt * dt)
+
+    cid = cell_index(lookup_pos(pos, velo, dt), meta).long()
+    start = grid.offsets[cid]
+    count = grid.offsets[cid + 1] - start
+    p_max = grid.tri_ids.shape[0] - 1
+
+    def gather_fn(j):
+        tid = grid.tri_ids[torch.clamp(start + j, 0, p_max).long()].long()
+        return grid.v0[:, tid], grid.v1[:, tid], grid.v2[:, tid], j < count
+
+    nearest = nphase.swept_collide_stream(
+        pos, dirn, seg_len2, state.radius, gather_fn, meta.max_tris_per_cell)
+    hit = nearest.hit & (speed2 != 0.0)
+    if active is not None:
+        hit = hit & active
+    new_pos, new_vel = nphase.spatial_response(
+        pos, velo, dirn, hit, nearest.t, nearest.normal,
+        gravity, dt, state.radius, state.restitution, backoff,
+    )
+    return state._replace(
+        pos=new_pos, vel=new_vel,
+        collisions=state.collisions + hit.to(torch.int32),
+    )
+
+
 def spatial_collide_packed(
     state: ParticleState,
     packed,
@@ -104,7 +260,8 @@ def spatial_collide_packed(
 ) -> ParticleState:
     """Grid spatial collision via the packed planar layout: one [2, N]
     cell gather + one row gather of the groups of candidates the densest
-    occupied cell needs (the phase-3 rescue path; ops.grid.PackedGrid)."""
+    occupied cell needs (the CPU spatial path and the phase-3 rescue;
+    ops.grid.PackedGrid)."""
     pos, velo = state.pos, state.vel
     n = pos.shape[-1]
     dev = pos.device
@@ -123,30 +280,38 @@ def spatial_collide_packed(
     g_bound = max(1, min(syncs.read((count.max() + group - 1) // group),
                          num_groups))
     # all g_bound groups at once: candidate j = g * group + slot on axis
-    # 1 ([3, J, N]), particles on the last axis.  The first minimal t2
-    # over j is what the JAX package's per-group argmin + strict-< fold
-    # keeps.
+    # 1 ([3, J, N]), particles on the last axis, in chunks of lanes.  The
+    # first minimal t2 over j is what the JAX package's per-group argmin
+    # + strict-< fold keeps.
+    n_cand = g_bound * group
     g_idx = torch.arange(g_bound, dtype=torch.int32, device=dev)[:, None]
-    rows = packed.rows[:, torch.clamp(row0[None] + g_idx, 0, max_row)]
-    r9 = rows.reshape(group, 9, g_bound, n).permute(1, 2, 0, 3).reshape(
-        9, g_bound * group, n)
-    j = torch.arange(g_bound * group, dtype=torch.int32, device=dev)[:, None]
-    valid = j < count[None, :]  # [J, N]
-
-    hits = nphase.particle_vs_triangles_pre(
-        pos[:, None, :], dirn[:, None, :], seg_len2[None, :],
-        r9[0:3], r9[3:6], r9[6:9], state.radius[None, :],
-    )
-    hit_j = hits.hit & valid
-    t2_j = torch.where(hit_j, hits.t2, float("inf"))
-    k_best = torch.argmin(t2_j, dim=0)[None]  # [1, N], first minimum
-    best_t2 = torch.gather(t2_j, 0, k_best)[0]
-    take = best_t2 < float("inf")
-    best_t = torch.where(take, torch.gather(hits.t, 0, k_best)[0], float("inf"))
-    best_n = vec.where(
-        take, torch.gather(hits.normal, 1, k_best[None].expand(3, 1, n))[:, 0], 0.0
-    )
-    any_hit = hit_j.any(dim=0)
+    j = torch.arange(n_cand, dtype=torch.int32, device=dev)[:, None]
+    lanes = max(1, _CHUNK_ELEMS // n_cand)
+    parts = []
+    for a in range(0, n, lanes):
+        ln = slice(a, a + lanes)
+        m = min(n, a + lanes) - a
+        rows = packed.rows[:, torch.clamp(row0[None, ln] + g_idx, 0, max_row)]
+        r9 = rows.reshape(group, 9, g_bound, m).permute(1, 2, 0, 3).reshape(
+            9, n_cand, m)
+        valid = j < count[None, ln]  # [J, m]
+        hits = nphase.particle_vs_triangles_pre(
+            pos[:, None, ln], dirn[:, None, ln], seg_len2[None, ln],
+            r9[0:3], r9[3:6], r9[6:9], state.radius[None, ln],
+        )
+        hit_j = hits.hit & valid
+        t2_j = torch.where(hit_j, hits.t2, float("inf"))
+        k_best = torch.argmin(t2_j, dim=0)[None]  # [1, m], first minimum
+        best_t2 = torch.gather(t2_j, 0, k_best)[0]
+        take = best_t2 < float("inf")
+        parts.append((
+            best_t2,
+            torch.where(take, torch.gather(hits.t, 0, k_best)[0], float("inf")),
+            vec.where(take, torch.gather(
+                hits.normal, 1, k_best[None].expand(3, 1, m))[:, 0], 0.0),
+            hit_j.any(dim=0),
+        ))
+    best_t2, best_t, best_n, any_hit = (torch.cat(x, dim=-1) for x in zip(*parts))
 
     hit = any_hit & (best_t2 < float("inf")) & (speed2 != 0.0)
     if active is not None:
@@ -162,30 +327,50 @@ def spatial_collide_packed(
     )
 
 
+SPATIAL_GRID_VARIANTS = ("packed", "stream", "dense")
+
+
 def make_spatial_step_grid(triangles, cfg: SimConfig, variant: str = "packed",
                            group: int = 8, *, device="cuda"):
     """Spatial method with the static CSR triangle grid broad phase: one
-    cell lookup per particle, the narrow phase over the cell's candidates
-    (``spatial_collide_packed``), then the integrator.  Only the "packed"
-    variant is ported; "dense" and "stream" raise NotImplementedError.
-    The step's ``syncs`` attribute counts its host reads."""
-    if variant in ("dense", "stream"):
-        raise NotImplementedError(
-            f'spatial variant "{variant}" is not ported yet: ROADMAP.md '
-            "queue A2/A3")
-    if variant != "packed":
+    cell lookup per particle, the narrow phase over the cell's
+    candidates, then the integrator.
+
+    Variants (identical semantics, different memory behaviour):
+      * "packed": packed-row gathers (``spatial_collide_packed``), the
+        CPU path;
+      * "stream": one candidate slot per iteration, [N]-only shapes (an
+        oracle: about 60 eager operations per slot);
+      * "dense": the [3, N, K] candidate gather (``gather_candidates``,
+        the testing baseline).
+    The step's ``syncs`` attribute counts its host reads.
+    """
+    if variant not in SPATIAL_GRID_VARIANTS:
         raise ValueError(f"unknown spatial variant {variant!r}")
     dev = resolve_device(device)
     grid, meta = build_triangle_grid(triangles, cfg.grid, device=dev)
-    packed, num_groups = pack_grid(grid, meta, group=group)
     gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
     syncs = HostSyncs()
+    if variant == "dense":
+        def collide(state):
+            v0, v1, v2, mask = gather_candidates(
+                grid, meta, lookup_pos(state.pos, state.vel, cfg.dt))
+            return spatial_collide(state, v0, v1, v2, gravity, cfg.dt,
+                                   cfg.backoff, cand_mask=mask)
+    elif variant == "stream":
+        def collide(state):
+            return spatial_collide_stream(state, grid, meta, gravity, cfg.dt,
+                                          cfg.backoff)
+    else:
+        packed, num_groups = pack_grid(grid, meta, group=group)
+
+        def collide(state):
+            return spatial_collide_packed(
+                state, packed, meta, num_groups, group, gravity, cfg.dt,
+                cfg.backoff, syncs=syncs)
 
     def step(state: ParticleState) -> ParticleState:
-        state = spatial_collide_packed(
-            state, packed, meta, num_groups, group, gravity, cfg.dt,
-            cfg.backoff, syncs=syncs,
-        )
+        state = collide(state)
         new_pos, new_vel = integrate(state.pos, state.vel, gravity, cfg.dt)
         return state._replace(pos=new_pos, vel=new_vel)
 
@@ -967,8 +1152,9 @@ def make_method_step(scene, method, camera_index: int = 0,
 
     ``spatial_variant`` (spatial and hybrid): "auto" is the sorted window
     pipeline when the device is CUDA (the kernels' path) and the packed
-    path on the CPU; or "sorted" / "packed" explicitly (spatial "dense"
-    and "stream" are not ported).  ``cells_lookup``: the sorted variant's
+    path on the CPU; or name one of sorted / packed / stream / dense
+    (hybrid: every variant but "sorted" is the packed hybrid step, as in
+    the JAX package).  ``cells_lookup``: the sorted variant's
     (start, count) lookup plan ("auto" / "gather" / "kernel"); the packed
     path has none and ignores it.
     """
@@ -994,6 +1180,54 @@ def make_method_step(scene, method, camera_index: int = 0,
                                        cells_lookup=cells_lookup, device=dev)
     # as in the JAX package, every other variant is the packed hybrid step
     return make_hybrid_step(scene.triangles, cfg, camera, normals, device=dev)
+
+
+def sorted_step_overflow_count(triangles, cfg: SimConfig, state: ParticleState,
+                               window: int = 512) -> int:
+    """Diagnostic: how many particles of ``state`` would exceed the row
+    window of the sorted step (the rescue redoes them exactly).  The grid
+    is built on the state's device."""
+    dev = state.pos.device
+    n = state.pos.shape[-1]
+    if n % BLOCK:
+        raise ValueError(f"N={n} is not a multiple of {BLOCK}")
+    grid, meta = build_triangle_grid(triangles, cfg.grid, device=dev)
+    tables = build_window_tables(grid, meta, window)
+    lpos = lookup_pos(state.pos, state.vel, cfg.dt)
+    _, perm = torch.sort(morton_key(lpos, meta), stable=True)
+    cid_s = cell_index(lpos, meta)[perm]
+    overflow = _window_plan(cid_s, tables.cells2, window, n // BLOCK)[4]
+    return int(overflow.sum())
+
+
+def make_episode_runner(step, num_steps: int):
+    """Roll ``num_steps`` of ``step``: ``run(state) -> state``.  A Python
+    loop over the step; the kernels run inside each step."""
+
+    def run(state: ParticleState) -> ParticleState:
+        for _ in range(num_steps):
+            state = step(state)
+        return state
+
+    return run
+
+
+def make_trajectory_runner(step, num_steps: int, stride: int = 1):
+    """Roll ``num_steps // stride`` blocks of ``stride`` steps:
+    ``run(state) -> (final, hist)`` with hist f32[S, 3, N] the positions
+    after each block."""
+
+    def run(state: ParticleState):
+        hist = []
+        for _ in range(num_steps // stride):
+            for _ in range(stride):
+                state = step(state)
+            hist.append(state.pos)
+        if not hist:
+            return state, state.pos.new_empty((0,) + tuple(state.pos.shape))
+        return state, torch.stack(hist)
+
+    return run
 
 
 # ------------------------------------------------- particle-particle ----

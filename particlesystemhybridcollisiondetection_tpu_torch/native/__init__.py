@@ -1,5 +1,5 @@
-"""ctypes bindings + on-demand build of the native grid binner
-(psys_native.cpp).
+"""ctypes bindings + on-demand build of the native tier
+(psys_native.cpp: the grid binner and the sphere-BVH oracle).
 
 Compiled lazily with g++ into ``build/native/`` at the repository root
 (never into the package directory).  The grid builder has a NumPy
@@ -67,6 +67,19 @@ def load() -> Optional[ctypes.CDLL]:
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
+        lib.psys_bvh_build.restype = c.c_void_p
+        lib.psys_bvh_build.argtypes = [f32p, c.c_int64, c.c_int32, c.c_int32, c.c_int32]
+        lib.psys_bvh_num_nodes.restype = c.c_int64
+        lib.psys_bvh_num_nodes.argtypes = [c.c_void_p]
+        lib.psys_bvh_export.restype = None
+        lib.psys_bvh_export.argtypes = [c.c_void_p, f32p, i64p]
+        lib.psys_bvh_free.restype = None
+        lib.psys_bvh_free.argtypes = [c.c_void_p]
+        lib.psys_bvh_query.restype = None
+        lib.psys_bvh_query.argtypes = [
+            c.c_void_p, f32p, f32p, c.c_int64, f32p, c.c_float, i64p, f32p,
+            c.c_int32,
+        ]
         lib.psys_grid_build.restype = c.c_void_p
         lib.psys_grid_build.argtypes = [
             f32p, c.c_int64, c.c_double, c.c_double, c.c_double, c.c_int32,
@@ -79,3 +92,7 @@ def load() -> Optional[ctypes.CDLL]:
         lib.psys_grid_free.argtypes = [c.c_void_p]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    return load() is not None

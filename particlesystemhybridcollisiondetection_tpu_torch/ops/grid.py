@@ -305,3 +305,19 @@ def morton_cell_codes(meta: GridMeta) -> np.ndarray:
         | (_morton_spread(cy.astype(np.int32)).astype(np.int64) << 1)
         | (_morton_spread(cz.astype(np.int32)).astype(np.int64) << 2)
     )
+
+
+def gather_candidates(grid: TriangleGrid, meta: GridMeta, pos: torch.Tensor):
+    """Per-particle candidate triangles of the cell holding ``pos``
+    [3, N]: (v0, v1, v2, mask) with vertices f32[3, N, K] and validity
+    bool[N, K], K = ``meta.max_tris_per_cell`` (the "dense" variant's
+    broad phase: three gathers)."""
+    k = meta.max_tris_per_cell
+    cid = cell_index(pos, meta).long()
+    start = grid.offsets[cid]
+    count = grid.offsets[cid + 1] - start
+    j = torch.arange(k, dtype=torch.int32, device=pos.device)[None, :]
+    mask = j < count[:, None]
+    pair_idx = torch.clamp(start[:, None] + j, 0, grid.tri_ids.shape[0] - 1)
+    tid = grid.tri_ids[pair_idx.long()].long()
+    return grid.v0[:, tid], grid.v1[:, tid], grid.v2[:, tid], mask

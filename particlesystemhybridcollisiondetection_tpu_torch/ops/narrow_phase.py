@@ -15,8 +15,13 @@ evaluated unconditionally over the candidate axis; comparison chains use
 the reference's "keep previous unless strictly nearer" semantics, so NaN
 lanes (parallel rays, etc.) lose exactly as their IEEE comparisons fail.
 
-This is the plain PyTorch path of the phase-3 rescue
-(core/step.py::spatial_collide_packed).
+Shapes: ``p0, dirn`` [3, N] segment start and unit direction; ``v0, v1,
+v2`` [3, N, K] candidate vertices (``particle_vs_triangles``) or
+pre-broadcast ([3, G, N] in the packed path, ``particle_vs_triangles_pre``);
+``radius`` [N].  The nearest hit across candidates is the first minimum of
+the squared distance (``nearest_hit``, ``swept_collide_stream``).  These
+are the plain PyTorch paths of the oracle steps (brute force, "dense",
+"stream") and of the packed step and phase-3 rescue.
 """
 
 from __future__ import annotations
@@ -140,6 +145,64 @@ def particle_vs_triangles_pre(p0, dirn, seg_len2, v0, v1, v2, r) -> TriangleHits
     hit = any_hit & (best_t2 <= seg_len2)
     t2 = torch.where(hit, best_t2, _INF)
     return TriangleHits(hit=hit, t=best_t, t2=t2, normal=n)
+
+
+def particle_vs_triangles(p0, dirn, seg_len2, v0, v1, v2, radius) -> TriangleHits:
+    """Swept sphere vs a batch of candidate triangles, candidates on the
+    LAST axis (v0 is [3, N, K]); ``seg_len2`` [N] is |vel*dt|^2
+    (compute:226-230), ``radius`` [N].  Mirrors
+    ParticleTriangleIntersection (compute:163-233)."""
+    return particle_vs_triangles_pre(
+        p0[..., None], dirn[..., None], seg_len2[..., None], v0, v1, v2,
+        radius[..., None],
+    )
+
+
+class NearestHit(NamedTuple):
+    hit: torch.Tensor  # bool[N] any candidate hit
+    t: torch.Tensor  # f32[N] signed parameter of the winning hit
+    normal: torch.Tensor  # f32[3, N] winning triangle normal (flipped)
+
+
+def nearest_hit(hits: TriangleHits) -> NearestHit:
+    """Cross-candidate reduction: the first candidate with the smallest
+    squared distance (``torch.argmin`` returns the first minimum, as
+    ``jnp.argmin`` does)."""
+    k = torch.argmin(hits.t2, dim=-1, keepdim=True)
+    t = torch.gather(hits.t, -1, k)[..., 0]
+    hit = torch.gather(hits.hit, -1, k)[..., 0]
+    kn = k[None].expand((3,) + tuple(k.shape))
+    normal = torch.gather(hits.normal, -1, kn)[..., 0]
+    return NearestHit(hit=hit, t=t, normal=normal)
+
+
+def swept_collide_stream(p0, dirn, seg_len2, radius, gather_fn,
+                         num_candidates: int) -> NearestHit:
+    """Streaming nearest-hit reduction over candidate slots: the
+    semantics of ``particle_vs_triangles`` + ``nearest_hit`` with only
+    [N]-shaped tensors, one candidate slot per iteration.
+
+    ``gather_fn(j) -> (v0, v1, v2, valid)`` supplies candidate slot j of
+    every particle: vertices [3, N], validity [N].  A later slot replaces
+    the running best only when strictly nearer, so the first-seen
+    candidate wins ties, as the argmin of ``nearest_hit`` does."""
+    n = p0.shape[-1]
+    best_t2 = torch.full((n,), _INF, dtype=p0.dtype, device=p0.device)
+    best_t = torch.full((n,), _INF, dtype=p0.dtype, device=p0.device)
+    best_n = torch.zeros((3, n), dtype=p0.dtype, device=p0.device)
+    any_hit = torch.zeros((n,), dtype=torch.bool, device=p0.device)
+    for j in range(num_candidates):
+        v0, v1, v2, valid = gather_fn(j)
+        hits = particle_vs_triangles(p0, dirn, seg_len2, v0[..., None],
+                                     v1[..., None], v2[..., None], radius)
+        hit_j = hits.hit[..., 0] & valid
+        t2_j = torch.where(hit_j, hits.t2[..., 0], _INF)
+        take = t2_j < best_t2  # strict: the first-seen candidate wins ties
+        best_t2 = torch.where(take, t2_j, best_t2)
+        best_t = torch.where(take, hits.t[..., 0], best_t)
+        best_n = vec.where(take, hits.normal[..., 0], best_n)
+        any_hit = any_hit | hit_j
+    return NearestHit(hit=any_hit & (best_t2 < _INF), t=best_t, normal=best_n)
 
 
 def spatial_response(pos, vel, dirn, hit, t, normal, gravity, dt, radius,

@@ -44,7 +44,7 @@ def test_presets_match():
 ])
 def test_spawn_bitwise(preset, layers, kw):
     cfg_t, cfg_j = PRESETS[preset], J_PRESETS[preset]
-    a = convert.state_to_numpy(tstate.spawn_grid(cfg_t, layers, device="cpu", **kw))
+    a = tstate.snapshot(tstate.spawn_grid(cfg_t, layers, device="cpu", **kw))
     b = jstate.snapshot(jstate.spawn_grid(cfg_j, layers, **kw))
     assert a.keys() == b.keys()
     for k in a:
@@ -96,7 +96,7 @@ def test_state_convert_roundtrip():
     j = jstate.spawn_grid(J_PRESETS["sample"], 2, jitter=0.2, seed=3)
     snap = jstate.snapshot(j)
     t = convert.state_from_numpy(snap, device="cpu")
-    back = convert.state_to_numpy(t)
+    back = tstate.snapshot(t)
     for k in snap:
         np.testing.assert_array_equal(back[k], snap[k])
     bad = dict(snap, pos=snap["pos"].astype(np.float64))

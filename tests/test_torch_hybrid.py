@@ -26,6 +26,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.bench import harness as th
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     active_mask,
+    snapshot,
     spawn_grid,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.geometry import scenes as tscenes
@@ -90,7 +91,7 @@ def test_method_step_matches_jax(fast, j_fast, method):
         snap = jstate.snapshot(s)
         s = j_step(s)
         want = jstate.snapshot(s)
-        got = convert.state_to_numpy(step(convert.state_from_numpy(snap, device="cpu")))
+        got = snapshot(step(convert.state_from_numpy(snap, device="cpu")))
         np.testing.assert_array_equal(got["collisions"], want["collisions"],
                                       err_msg=f"step {k}")
         far = ~_close(got, want, mask)
@@ -123,7 +124,7 @@ def test_hybrid_sorted_matches_hybrid_packed(fast, cells_lookup):
     for k in range(85):
         na = a_step(s)
         if k % 30 == 0 or int(na.collisions.sum()) != int(s.collisions.sum()):
-            got, want = convert.state_to_numpy(b_step(s)), convert.state_to_numpy(na)
+            got, want = snapshot(b_step(s)), snapshot(na)
             np.testing.assert_array_equal(got["collisions"][mask],
                                           want["collisions"][mask], err_msg=f"step {k}")
             np.testing.assert_allclose(got["pos"][:, mask], want["pos"][:, mask],
@@ -156,7 +157,7 @@ def test_hybrid_runner_matches_per_step_and_jax(fast, j_fast):
     s = state
     for _ in range(75):
         s = step(s)
-    per_step = convert.state_to_numpy(s)
+    per_step = snapshot(s)
     assert per_step["collisions"][mask].sum() > 0
 
     j_run = jstep.make_sorted_episode_runner(
@@ -171,7 +172,7 @@ def test_hybrid_runner_matches_per_step_and_jax(fast, j_fast):
         runner = tstep.make_sorted_episode_runner(fast.triangles, cfg, camera=cam,
                                                   device="cpu", **kw)
         r, ovf = runner(state, 75, with_stats=True)
-        got = convert.state_to_numpy(r)
+        got = snapshot(r)
         assert len(ovf) == 75 and runner.steps == 75
         np.testing.assert_array_equal(got["collisions"][mask],
                                       per_step["collisions"][mask], err_msg=str(kw))
@@ -181,7 +182,7 @@ def test_hybrid_runner_matches_per_step_and_jax(fast, j_fast):
         assert (got["pos"][0, ~mask] == 1e38).all()
         assert (got["collisions"][~mask] == 0).all()
 
-        got = convert.state_to_numpy(runner(state, JAX_RUNNER_STEPS))
+        got = snapshot(runner(state, JAX_RUNNER_STEPS))
         np.testing.assert_array_equal(got["collisions"][mask],
                                       j_out["collisions"][mask], err_msg=str(kw))
         np.testing.assert_allclose(got["pos"][:, mask], j_out["pos"][:, mask],
@@ -229,7 +230,8 @@ def test_run_episode_on_cpu(fast, method):
     reports the camera."""
     twk.reset_launches()
     res = tharness.run_episode(fast, method, num_steps=61, chunk=20,
-                               resort_every="auto", device="cpu")
+                               resort_every="auto", persistent=True,
+                               device="cpu")
     assert res.method == method and res.camera == fast.cameras[0].name
     assert res.num_particles == 49 and res.num_steps == 60
     assert len(res.step_ms) == 60 and res.steps_per_sec > 0

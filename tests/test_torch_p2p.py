@@ -32,6 +32,7 @@ from particlesystemhybridcollisiondetection_tpu.ops.p2p_dense import (
 from particlesystemhybridcollisiondetection_tpu_torch import convert
 from particlesystemhybridcollisiondetection_tpu_torch.bench import configs as tconfigs
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import snapshot as tstate_snapshot
 from particlesystemhybridcollisiondetection_tpu_torch.core.step import make_p2p_step
 from particlesystemhybridcollisiondetection_tpu_torch.geometry import scenes as tscenes
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as tp2p
@@ -208,7 +209,7 @@ def test_box_state_bitwise(kw):
     kw = dict(kw)
     args = (kw.pop("n"), (0.0, 0.0, 0.0), kw.pop("box_hi"), kw.pop("radius"),
             kw.pop("restitution"))
-    a = convert.state_to_numpy(tconfigs._box_state(*args, device="cpu", **kw))
+    a = tstate_snapshot(tconfigs._box_state(*args, device="cpu", **kw))
     b = jstate.snapshot(jconfigs._box_state(*args, **kw))
     for k in b:
         assert a[k].dtype == b[k].dtype, k

@@ -21,6 +21,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.bench import harness as th
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     active_mask,
+    snapshot,
     spawn_grid,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import window_kernel as twk
@@ -69,7 +70,7 @@ def test_sorted_step_matches_jax(fast, jax_traj, cells_lookup):
     hits = 0
     for k in range(STEPS):
         out, st = step(convert.state_from_numpy(snaps[k], device="cpu"))
-        got, want = convert.state_to_numpy(out), snaps[k + 1]
+        got, want = snapshot(out), snaps[k + 1]
         np.testing.assert_array_equal(got["collisions"], want["collisions"],
                                       err_msg=f"step {k}")
         np.testing.assert_allclose(got["pos"][:, mask], want["pos"][:, mask],
@@ -90,7 +91,7 @@ def dense_probe(fast):
     s = spawn_grid(cfg, 1, jitter=0.35, seed=1, device="cpu")
     for _ in range(47):
         s = main(s)
-    return cfg, convert.state_to_numpy(s)
+    return cfg, snapshot(s)
 
 
 def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
@@ -129,7 +130,7 @@ def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
             with_stats=True, device="cpu")
         out, st = step(convert.state_from_numpy(probe, device="cpu"))
         assert st["window_overflow"] > 0
-        outs[plan] = convert.state_to_numpy(out)
+        outs[plan] = snapshot(out)
     assert calls["window"] >= 6 and calls["isolated"] >= 2, calls
     assert calls["packed"] == 0, calls
     for f in ("pos", "vel", "collisions"):
@@ -160,7 +161,7 @@ def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
                                               with_stats=True, device="cpu")
         out, st = step(convert.state_from_numpy(probe, device="cpu"))
         assert st["window_overflow"] > 0
-        return convert.state_to_numpy(out)
+        return snapshot(out)
 
     base = run()
     assert (base["collisions"] - probe["collisions"]).sum() > 0
@@ -240,7 +241,7 @@ def test_runner_matches_per_step_and_jax(fast):
     s = state
     for _ in range(75):
         s = step(s)
-    per_step = convert.state_to_numpy(s)
+    per_step = snapshot(s)
     assert per_step["collisions"][mask].sum() > 0
 
     j_run = jstep.make_sorted_episode_runner(
@@ -253,7 +254,7 @@ def test_runner_matches_per_step_and_jax(fast):
         runner = tstep.make_sorted_episode_runner(fast.triangles, cfg,
                                                   device="cpu", **kw)
         r, ovf = runner(state, 75, with_stats=True)
-        got = convert.state_to_numpy(r)
+        got = snapshot(r)
         assert len(ovf) == 75 and runner.steps == 75
         assert runner.syncs.count >= 75  # one overflow read per step at least
         np.testing.assert_array_equal(got["collisions"][mask],
@@ -277,8 +278,9 @@ def test_unported_options_raise(fast):
     with pytest.raises(NotImplementedError, match="A9"):
         tstep.make_spatial_step_sorted(fast.triangles, cfg, mesh=object(),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A2/A3"):
-        tstep.make_method_step(fast, "spatial", spatial_variant="dense", device="cpu")
+    # "dense" and "stream" are ported now; an unknown variant still raises
+    with pytest.raises(ValueError, match="unknown spatial variant"):
+        tstep.make_method_step(fast, "spatial", spatial_variant="bvh", device="cpu")
 
 
 def test_run_episode_spatial_on_cpu(fast):
@@ -286,7 +288,8 @@ def test_run_episode_spatial_on_cpu(fast):
     built, the chooser samples each), per-chunk timings, collisions."""
     twk.reset_launches()
     res = tharness.run_episode(fast, "spatial", num_steps=61, chunk=20,
-                               resort_every="auto", device="cpu")
+                               resort_every="auto", persistent=True,
+                               device="cpu")
     assert res.num_particles == 49 and res.num_steps == 60
     assert len(res.step_ms) == 60 and res.steps_per_sec > 0
     assert res.collisions.shape == (49,) and res.collisions.sum() > 0
