@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
 
+On a host with several cards phase 9 adds a run over NCCL across them.
+
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
      versions, and build the three CUDA sources of ops/cuda/csrc;
@@ -64,6 +66,21 @@ Phases (each raises on failure; nothing is caught and passed over):
      ``ResilientRunner`` over 200 sorted steps with one injected device
      loss, equal bit for bit to an uninterrupted run.  The launches of
      each command go into the kernel line as ``launches_cli``;
+  9. (after 8, in ranks spawned by ``parallel/dryrun.py::run_ranks``, so
+     no rank builds a kernel; ``drive_mesh``) the multi-device paths from
+     the main path's state at step 600: world 1 over NCCL, then 2 ranks
+     sharing the one card over gloo (the exchange staged through host
+     memory; not a multi-GPU number), then, where there are at least two
+     cards, min(4, cards) ranks over NCCL.  In each: the spatial runner
+     with ``mesh=`` over steps 600-650 (a warm pass, then the timed pass,
+     which must repeat it bit for bit), gathered and held bit for bit
+     against the single-device runner on all 1,048,576 lanes, both
+     overflow sums printed; in every rank B1 (main window) and B2 against
+     their plain versions on the rank's state at step 650; config 5, 20
+     timed steps (500,000 particles per rank), every particle kept and no
+     halo or migration overflow.  Each rank's launches on the mesh
+     runner go into the kernel line as ``launches_mesh``.  Last, the
+     ``parallel/dryrun.py`` entry point on the card with 2 ranks;
   7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
@@ -215,6 +232,87 @@ def span_columns(torch, col0, bound, n_cols: int) -> int:
     diff.index_add_(0, col0[live], one)
     diff.index_add_(0, (col0 + bound)[live], -one)
     return int((torch.cumsum(diff, 0) > 0).sum())
+
+
+def sorted_plan(torch, sp, state, undecided=None):
+    """Sort and plan a state as the step does: the cells kernel's
+    arguments, the window kernel's at the main window, on the first
+    phase-1 rescue chunk and on a phase-2 launch.  ``undecided`` (hybrid): the
+    screen-space stage's mask, which zeroes the other lanes' counts."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
+        lookup_pos, morton_key,
+    )
+
+    cfg = sp.cfg
+    nb = state.pos.shape[-1] // wk.BLOCK
+    key = morton_key(lookup_pos(state.pos, state.vel, cfg.dt), sp.meta)
+    key_s, perm = torch.sort(key, stable=True)
+    rows = torch.cat([state.pos, state.vel, state.radius[None],
+                      state.restitution[None]], dim=0)[:, perm]
+    sorted_state = (rows[0:3].contiguous(), rows[3:6].contiguous(),
+                    rows[6].contiguous(), rows[7].contiguous())
+    kr = key_s.reshape(nb * wk.SUB, wk.LANE)
+    lo = (kr.min(dim=1).values // 128) * 128
+    hi = torch.clamp(((kr.max(dim=1).values - S._CODE_WC + 128) // 128) * 128, min=0)
+    active_s = None if undecided is None else undecided[perm]
+    rel, count, ws, k_cap, overflow, _ = S._window_plan_coded(
+        key_s, sp.ctab, sp.window, nb, active_s=active_s, demote=sp.demote)
+    pick = S._phase1_order(overflow, key_s)[:8192]
+    _, chunk_state, (rel_c, cnt_c, ws_c, kcap_c, _) = S._rescue_chunk(
+        sorted_state, overflow, pick, sp.tables, sp.meta, cfg, sp.rescue_window)
+    # a phase-2 launch (one lane per row) on the first 1024 of them
+    pick2 = pick[:1024]
+    args2, _ = S._isolated_plan(sorted_state, overflow[pick2], pick2, sp.tables,
+                                sp.meta, cfg, sp.rescue_window)
+    return ((key_s, lo, hi, sp.ctab),
+            {"main": ((*sorted_state, rel, count, ws, k_cap, sp.tables), sp.window),
+             "rescue chunk": ((*chunk_state, rel_c, cnt_c, ws_c, kcap_c, sp.tables),
+                              sp.rescue_window),
+             "one lane per row": ((*args2, sp.tables), sp.rescue_window)},
+            int(overflow.sum()))
+
+
+def b1_vs_plain(torch, args, w, kw) -> dict:
+    """The window kernel against its plain version on one case: active
+    lanes whose hit differs, lanes outside rtol/atol, active lanes that
+    differ in any bit, the largest difference, and the kernel's hits."""
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    pk, vk, hk = wk.window_collide_sorted(*args, w=w, **kw)
+    pp, vp, hp = wk.window_collide_sorted_plain(*args, w=w, **kw)
+    torch.cuda.synchronize()
+    act = torch.abs(args[0][0]) < 5e37
+    close = (torch.isclose(pk, pp, rtol=RTOL, atol=ATOL).all(0)
+             & torch.isclose(vk, vp, rtol=RTOL, atol=ATOL).all(0))
+    return {"hit_bad": int(((hk != hp) & act).sum()), "far": int((~close).sum()),
+            "bits": lane_diff(torch, pk[:, act], pp[:, act])
+            + lane_diff(torch, vk[:, act], vp[:, act]),
+            "err": max(float(torch.abs(pk - pp)[:, act].max()),
+                       float(torch.abs(vk - vp)[:, act].max())),
+            "hits": int(hk.sum())}
+
+
+def b2_vs_plain(torch, b2_args) -> dict:
+    """The cells kernel against its plain version: lanes that differ (the
+    start only where the plain version hit) and the misses."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    start_k, count_k = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
+    start_p, count_p = wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC)
+    torch.cuda.synchronize()
+    hit_cnt = count_p >= 0
+    return {"bad": int((count_k != count_p).sum()
+                       + ((start_k != start_p) & hit_cnt).sum()),
+            "misses": int((~hit_cnt).sum())}
 
 
 def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sorted_plan,
@@ -879,6 +977,210 @@ def drive_cli(torch, card: str, snap) -> dict:
                                          "dense": ms_dense, "bruteforce": ms_bf}}
 
 
+MESH_STEPS = 50  # phase 9: steps 600-650 of the main path, on a mesh
+CONFIG5_STEPS = 20
+
+
+def _mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 9 in one rank of ``world`` (the backend is the one
+    ``data_parallel.choose_backend`` picked for it): the spatial runner
+    with mesh= from the main path's state at step 600 over MESH_STEPS
+    steps, gathered to rank 0; B1 and B2 against their plain versions on
+    this rank's state at step 650; then config 5, CONFIG5_STEPS timed
+    steps.  Rank 0 saves the gathered state and every rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from particlesystemhybridcollisiondetection_tpu_torch.bench.configs import config_5
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import ParticleState
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+
+    mesh = dp.make_mesh(device_type="cuda")
+    t0 = time.perf_counter()
+    scene = dragon_scene()
+    cfg = scene.config
+    runner = S.make_sorted_episode_runner(
+        scene.triangles, cfg, cells_lookup="kernel", resort_every="auto",
+        mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    glob = ParticleState(*torch.load(os.path.join(workdir, "snap600.pt")))
+    local = dp.shard_state(glob, mesh)
+    # the same tables without the mesh: this rank's slice alone, so the
+    # mesh's cost is read in turns inside one process
+    alone = S.SortedEpisodeRunner(runner.sp, "auto", 8192, 8192, False)
+    # a first pass of each warms this fresh process (allocator, lazily
+    # loaded modules) as the main path's 600 steps warmed the
+    # single-device runner; the timed passes must repeat it bit for bit
+    warm = runner(local, MESH_STEPS)
+    alone(local, MESH_STEPS)
+    ms = {"mesh": [], "alone": []}
+    for turn in ("mesh", "alone", "mesh", "alone"):
+        torch.cuda.synchronize()
+        first_mesh = turn == "mesh" and not ms["mesh"]
+        if first_mesh:
+            wk.reset_launches()
+        t0 = time.perf_counter()
+        if turn == "mesh":
+            res, ovf_t = runner(local, MESH_STEPS, with_stats=True)
+        else:
+            res = alone(local, MESH_STEPS)
+        torch.cuda.synchronize()
+        ms[turn].append((time.perf_counter() - t0) * 1000.0 / MESH_STEPS)
+        if first_mesh:
+            launches = dict(wk.LAUNCHES)
+            out, ovf = res, ovf_t
+        elif turn == "alone":
+            alone_out = res
+    repeat_diff = sum(lane_diff(torch, a, b) for a, b in zip(out, warm))
+    alone_diff = sum(lane_diff(torch, a, b) for a, b in zip(out, alone_out))
+    gathered = dp.gather_state(out, mesh)
+
+    # B1 (main window) and B2 on this rank's state at step 650
+    kw = dict(k_static=runner.sp.meta.max_tris_per_cell, gravity=cfg.gravity,
+              dt=cfg.dt, backoff=cfg.backoff)
+    b2_args, cases, _ = sorted_plan(torch, runner.sp, out)
+    args, w = cases["main"]
+    rec = {"rank": rank, "device": str(dp.rank_device(mesh)),
+           "backend": dist.get_backend(), "n_local": out.pos.shape[-1],
+           "setup_s": setup_s, "ms_mesh": ms["mesh"], "ms_alone": ms["alone"],
+           "overflow": ovf,
+           "repeat_diff": repeat_diff + alone_diff, "launches": launches,
+           "b1": b1_vs_plain(torch, args, w, kw), "b2": b2_vs_plain(torch, b2_args)}
+    del runner, alone, glob, local, out, warm, res, alone_out, b2_args, cases, args
+    torch.cuda.empty_cache()
+    rec["config5"] = config_5(steps=CONFIG5_STEPS)
+    recs = [None] * world
+    dist.all_gather_object(recs, rec)
+    if rank == 0:
+        torch.save({"state": tuple(x.cpu() for x in gathered), "ranks": recs},
+                   os.path.join(workdir, f"mesh_{world}.pt"))
+
+
+def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dict:
+    """Phase 9: the multi-device paths, in ranks spawned after the kernel
+    build (so no rank builds) from the main path's state at step 600.
+    World 1 over NCCL, then 2 ranks on the one card over gloo (the
+    exchange staged through host memory), then, with at least two cards,
+    min(4, cards) ranks over NCCL.  Each run's gathered state at step
+    650 must equal the single-device runner's (``snap650``) bit for bit
+    on every lane, B1 and B2 must equal their plain versions in every
+    rank, and config 5 must keep every particle.  Returns each world's
+    per-rank B1 and B2 launches on the mesh runner."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+        run_ranks,
+    )
+
+    t_phase = time.perf_counter()
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "phase9")
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(tuple(x.cpu() for x in snap600), os.path.join(workdir, "snap600.pt"))
+    n = snap650.pos.shape[-1]
+    mask = active_mask(snap650)
+    worlds = [1, 2]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        worlds.append(min(4, n_cards))
+    else:
+        print(f"[{card}] phase 9: {n_cards} card: the NCCL run over several "
+              "cards is skipped")
+    print(f"[{card}] phase 9: single-device runner, steps 600-650: "
+          f"{single_ms:.3f} ms/step, overflow summed over the steps "
+          f"{sum(ovf_single)}")
+    launches = {}
+    for world in worlds:
+        backend = dp.choose_backend("cuda", world)
+        shared = world > n_cards
+        tag = (f"{world} rank{'s' if world > 1 else ''} over {backend}"
+               + (" on one card" if shared else ""))
+        t0 = time.perf_counter()
+        run_ranks(_mesh_rank, world, workdir, device_type="cuda")
+        wall = time.perf_counter() - t0
+        res = torch.load(os.path.join(workdir, f"mesh_{world}.pt"))
+        recs = res["ranks"]
+        got = [x.to(snap650.pos.device) for x in res["state"]]
+        diff = sum(lane_diff(torch, g, w) for g, w in zip(got, snap650))
+        note = ("; 2 ranks share one card: not a multi-GPU number"
+                if shared else "")
+        ovf = recs[0]["overflow"]
+        print(f"[{card}] phase 9, {tag} ({wall:.1f} s with spawn): spatial "
+              f"runner with mesh=, steps 600-650, {n // world} particles per "
+              f"rank: lanes differing from the single-device runner {diff} of "
+              f"{n} (collisions {int(got[2][mask].sum())} vs "
+              f"{int(snap650.collisions[mask].sum())}); overflow summed over "
+              f"ranks and steps {sum(ovf)} (single device {sum(ovf_single)}); "
+              f"ms/step by rank, "
+              f"two passes each in turns, with mesh= / the same slice without: "
+              + "; ".join(" / ".join(", ".join(f"{t:.3f}" for t in r[k])
+                                     for k in ("ms_mesh", "ms_alone"))
+                          for r in recs)
+              + " (host setup " + ", ".join(f"{r['setup_s']:.1f}" for r in recs)
+              + f" s){note}")
+        if diff:
+            raise RuntimeError(f"{tag}: mesh runner differs from the single-device "
+                               f"runner on {diff} lanes")
+        # "auto" re-sorts from the summed overflow: ranks that report the
+        # same sequence re-sorted at the same steps
+        if any(r["backend"] != backend or r["overflow"] != ovf for r in recs):
+            raise RuntimeError(f"{tag}: ranks disagree on backend or overflow")
+        if any(r["repeat_diff"] for r in recs):
+            raise RuntimeError(f"{tag}: a timed pass differs from the warm pass "
+                               "or from the slice run without the mesh")
+        for r in recs:
+            b1, b2 = r["b1"], r["b2"]
+            print(f"[{card}]   rank {r['rank']} ({r['device']}): B1 main vs plain: "
+                  f"hit differs on {b1['hit_bad']} lanes, any bit on {b1['bits']}, "
+                  f"outside tolerance {b1['far']}, max |diff| {b1['err']:.3e}, hits "
+                  f"{b1['hits']}; B2 vs plain: {b2['bad']} lanes differ (misses "
+                  f"{b2['misses']}); launches on the mesh runner {r['launches']}")
+            if b1["hit_bad"] or b1["bits"] or b1["far"] or b2["bad"]:
+                raise RuntimeError(f"{tag}, rank {r['rank']}: a kernel disagrees "
+                                   "with its plain version")
+            if min(r["launches"].values()) <= 0:
+                raise RuntimeError(f"{tag}, rank {r['rank']}: a kernel of the "
+                                   "path never launched")
+        launches[f"world{world}_{backend}"] = [r["launches"] for r in recs]
+        c5 = [r["config5"] for r in recs]
+        print(f"[{card}] phase 9, {tag}: config 5, {c5[0]['particles']} particles, "
+              f"{CONFIG5_STEPS} timed steps: alive after {c5[0]['active_particles']}; "
+              f"overflow halo {c5[0]['halo_overflow_last_step']}, migrate "
+              f"{c5[0]['migrate_overflow_last_step']}, cell "
+              f"{c5[0]['cell_overflow_last_step']}; ms/step "
+              + ", ".join(f"{1000.0 / c['steps_per_sec']:.3f}" for c in c5)
+              + f"{note}")
+        if any(c["active_particles"] != c["particles"]
+               or c["halo_overflow_last_step"] or c["migrate_overflow_last_step"]
+               or c["backend"] != backend for c in c5):
+            raise RuntimeError(f"{tag}: config 5 lost particles or overflowed")
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    print(f"[{card}] phase 9: the dry-run entry point, 2 ranks over "
+          f"{dp.choose_backend('cuda', 2)}: {time.perf_counter() - t0:.1f} s")
+    print(f"[{card}] phase 9 (multi-device paths): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def device_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
 def main() -> int:
     import torch
 
@@ -902,9 +1204,6 @@ def main() -> int:
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
-    )
-    from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
-        lookup_pos, morton_key,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
 
@@ -996,41 +1295,12 @@ def main() -> int:
 
     # ---- phases 3 and 4: each kernel against its plain version and timed,
     # on the states at step 650 and at step 700 ----
-    nb = n // wk.BLOCK
     kw = dict(k_static=sp.meta.max_tris_per_cell, gravity=cfg.gravity,
               dt=cfg.dt, backoff=cfg.backoff)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def sorted_plan(state, undecided=None):
-        """Sort and plan a state as the step does: the cells kernel's
-        arguments, the window kernel's at the main window, on the first
-        phase-1 rescue chunk and on a phase-2 launch.  ``undecided`` (hybrid): the
-        screen-space stage's mask, which zeroes the other lanes' counts."""
-        key = morton_key(lookup_pos(state.pos, state.vel, cfg.dt), sp.meta)
-        key_s, perm = torch.sort(key, stable=True)
-        rows = torch.cat([state.pos, state.vel, state.radius[None],
-                          state.restitution[None]], dim=0)[:, perm]
-        sorted_state = (rows[0:3].contiguous(), rows[3:6].contiguous(),
-                        rows[6].contiguous(), rows[7].contiguous())
-        kr = key_s.reshape(nb * wk.SUB, wk.LANE)
-        lo = (kr.min(dim=1).values // 128) * 128
-        hi = torch.clamp(((kr.max(dim=1).values - S._CODE_WC + 128) // 128) * 128, min=0)
-        active_s = None if undecided is None else undecided[perm]
-        rel, count, ws, k_cap, overflow, _ = S._window_plan_coded(
-            key_s, sp.ctab, sp.window, nb, active_s=active_s, demote=sp.demote)
-        pick = S._phase1_order(overflow, key_s)[:8192]
-        _, chunk_state, (rel_c, cnt_c, ws_c, kcap_c, _) = S._rescue_chunk(
-            sorted_state, overflow, pick, sp.tables, sp.meta, cfg, sp.rescue_window)
-        # a phase-2 launch (one lane per row) on the first 1024 of them
-        pick2 = pick[:1024]
-        args2, _ = S._isolated_plan(sorted_state, overflow[pick2], pick2, sp.tables,
-                                    sp.meta, cfg, sp.rescue_window)
-        return ((key_s, lo, hi, sp.ctab),
-                {"main": ((*sorted_state, rel, count, ws, k_cap, sp.tables), sp.window),
-                 "rescue chunk": ((*chunk_state, rel_c, cnt_c, ws_c, kcap_c, sp.tables),
-                                  sp.rescue_window),
-                 "one lane per row": ((*args2, sp.tables), sp.rescue_window)},
-                int(overflow.sum()))
+    def plan(state, undecided=None):
+        return sorted_plan(torch, sp, state, undecided)
 
     def window_case(tag, args, w):
         """One window-kernel case: candidate spread, agreement with the
@@ -1050,23 +1320,13 @@ def main() -> int:
               f"mean {float(row_sum.float().mean()):.2f}, rows with candidates "
               f"{int((row_sum > 0).sum())}; total {n_cand}")
 
-        pk, vk, hk = wk.window_collide_sorted(*args, w=w, **kw)
-        pp, vp, hp = wk.window_collide_sorted_plain(*args, w=w, **kw)
-        torch.cuda.synchronize()
-        act = torch.abs(args[0][0]) < 5e37
-        hit_bad = int(((hk != hp) & act).sum())
-        close = (torch.isclose(pk, pp, rtol=RTOL, atol=ATOL).all(0)
-                 & torch.isclose(vk, vp, rtol=RTOL, atol=ATOL).all(0))
-        far = int((~close).sum())
-        bits = lane_diff(torch, pk[:, act], pp[:, act]) + lane_diff(
-            torch, vk[:, act], vp[:, act])
-        err = max(float(torch.abs(pk - pp)[:, act].max()),
-                  float(torch.abs(vk - vp)[:, act].max()))
-        print(f"[{card}] B1 {tag} vs plain: hit differs on {hit_bad} active lanes, "
-              f"pos/vel differ in any bit on {bits} active lanes, outside "
-              f"rtol={RTOL} atol={ATOL} on {far} lanes, max |diff| {err:.3e}, "
-              f"hits {int(hk.sum())}")
-        if hit_bad or far or bits:
+        c = b1_vs_plain(torch, args, w, kw)
+        err = c["err"]
+        print(f"[{card}] B1 {tag} vs plain: hit differs on {c['hit_bad']} active "
+              f"lanes, pos/vel differ in any bit on {c['bits']} active lanes, "
+              f"outside rtol={RTOL} atol={ATOL} on {c['far']} lanes, max |diff| "
+              f"{err:.3e}, hits {c['hits']}")
+        if c["hit_bad"] or c["far"] or c["bits"]:
             raise RuntimeError(f"window kernel ({tag}) disagrees with its plain version")
 
         t = timed(torch, lambda: wk.window_collide_sorted(*args, w=w, **kw),
@@ -1094,14 +1354,10 @@ def main() -> int:
         """The cells kernel against its plain version, timed, with its
         bound.  Returns its kernel-table numbers."""
         key_s = b2_args[0]
-        start_k, count_k = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
-        start_p, count_p = wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC)
-        torch.cuda.synchronize()
-        hit_cnt = count_p >= 0
-        b2_bad = int((count_k != count_p).sum()
-                     + ((start_k != start_p) & hit_cnt).sum())
+        c = b2_vs_plain(torch, b2_args)
+        b2_bad = c["bad"]
         print(f"[{card}] B2 cells lookup ({tag}) vs plain at N={n}: {b2_bad} lanes "
-              f"differ (misses {int((~hit_cnt).sum())})")
+              f"differ (misses {c['misses']})")
         if b2_bad:
             raise RuntimeError(f"cells kernel disagrees with its plain version "
                                f"on {b2_bad} lanes")
@@ -1122,7 +1378,7 @@ def main() -> int:
 
     b1 = {}
     for at, state in ((SNAP_STEP, snap), (N_STEPS, s)):
-        b2_args, cases, n_ovf = sorted_plan(state)
+        b2_args, cases, n_ovf = plan(state)
         print(f"[{card}] state at step {at}: {n_ovf} overflow lanes in the main plan")
         if at == SNAP_STEP:
             b2 = b2_case(f"spatial, step {at}", b2_args)
@@ -1147,7 +1403,7 @@ def main() -> int:
           f"{nd_coll} (default {total_coll})")
 
     # ---- phase 5: the hybrid path on the same scene and spawn ----
-    hyb = drive_hybrid(torch, card, scene, state0, total_coll, sorted_plan,
+    hyb = drive_hybrid(torch, card, scene, state0, total_coll, plan,
                        b2_case, window_case)
 
     # ---- phase 6: the particle-particle path ----
@@ -1155,6 +1411,14 @@ def main() -> int:
 
     # ---- phase 8: the command line, the oracle steps, the resilient runner ----
     cli = drive_cli(torch, card, snap)
+
+    # ---- phase 9: the multi-device paths, from the main path's state at
+    # step 600 ----
+    mesh_launches = drive_mesh(torch, card, snap600, snap, ovf_a,
+                               t_a * 1000.0 / (SNAP_STEP - 600))
+
+    def mesh_launch(key):
+        return {w: [r[key] for r in ranks] for w, ranks in mesh_launches.items()}
 
     def cli_launches(key):
         return {sub: counts[key] for sub, counts in cli["launches"].items()
@@ -1183,9 +1447,11 @@ def main() -> int:
     h_launch = hyb["launches"]
     kernels = [
         {**b2_entry("", b2, launches["cells_window_lookup"]),
-         "launches_cli": cli_launches("cells_window_lookup")},
+         "launches_cli": cli_launches("cells_window_lookup"),
+         "launches_mesh": mesh_launch("cells_window_lookup")},
         {**b1_entry("", b1[("main", SNAP_STEP)], b1_total),
-         "launches_cli": cli_launches("window_collide_sorted")},
+         "launches_cli": cli_launches("window_collide_sorted"),
+         "launches_mesh": mesh_launch("window_collide_sorted")},
         b1_entry(":rescue_chunk", b1[("rescue chunk", SNAP_STEP)], b1_total - N_STEPS,
                  b1[("one lane per row", SNAP_STEP)]),
         b1_entry(":main_step700", b1[("main", N_STEPS)], N_STEPS),
@@ -1205,9 +1471,7 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(device_line(torch))
     return 0
 
 

@@ -6,12 +6,16 @@ metrics dict.
   2. uniform grid broad phase, 50k particles, walls + restitution
   3. hybrid (screen-space + exact fallback), 262k on the bunny scene
   4. 1M particles, on-device grid build + narrow phase + integrate
-  5. 4M particles, spatial grid sharded across devices: not ported yet
+  5. heterogeneous radii and restitution, the box split into slabs over
+     the ranks of a process group with a halo exchange (500k per rank)
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.bench.harness import run_e
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
+    active_mask,
     resolve_device,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.core.step import (
@@ -169,9 +174,99 @@ def config_4(steps: int = 200, n: int = 1_000_000, device="cuda") -> dict:
     return _config_box(4, steps, n, (side, side / 2, side), 20, device)
 
 
-def config_5(*args, **kwargs) -> dict:
-    raise NotImplementedError(
-        "config 5 (sharded domain) is not ported yet: ROADMAP.md queue A9")
+@contextlib.contextmanager
+def _process_group(device_type: str):
+    """The default process group: the caller's if it made one; under
+    ``torchrun`` (``WORLD_SIZE`` in the environment) one joined from the
+    environment; else a group of one rank in this process.  A group made
+    here is destroyed on the way out.  Yields the backend's name."""
+    import torch.distributed as dist
+
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+
+    if dist.is_initialized():
+        yield dist.get_backend()
+        return
+    if "WORLD_SIZE" in os.environ:
+        backend = dp.init_ranks(int(os.environ["RANK"]),
+                                int(os.environ["WORLD_SIZE"]), "env://",
+                                device_type)
+    else:
+        backend = dp.choose_backend(device_type, 1)
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield backend
+    finally:
+        dist.destroy_process_group()
+
+
+def config_5(steps: int = 100, n: Optional[int] = None,
+             n_shards: Optional[int] = None, device="cuda") -> dict:
+    """Heterogeneous radii/restitution, the box split into one slab per
+    rank with a halo exchange (parallel/domain.py): 500k particles per
+    rank, a box 40 units wide per rank.  The ranks are the process
+    group's (``torchrun --nproc-per-node=N``); run alone, a group of
+    one.  ``n_shards`` may only restate the world size.  Every rank
+    returns the same dict; ``active_particles`` counts the particles
+    alive after the last step, over all ranks (conservation)."""
+    import torch.distributed as dist
+
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import domain as dom
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    dev = resolve_device(device)
+    with _process_group(dev.type) as backend:
+        shards = dist.get_world_size()
+        if n_shards is not None and n_shards != shards:
+            raise ValueError(f"n_shards={n_shards} on a group of {shards} ranks")
+        n = n or 500_000 * shards
+        side = 40.0 * shards
+        box_lo, box_hi = (0.0, 0.0, 0.0), (side, 80.0, 40.0)
+        cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
+        cap = int(np.ceil(n / shards * 2 / 128)) * 128
+        dcfg = dom.DomainConfig(
+            box_lo=box_lo, box_hi=box_hi, n_shards=shards,
+            shard_capacity=cap,
+            halo_capacity=max(2048, cap // 8),
+            migrate_capacity=max(2048, cap // 8),
+            cell_size=2 * 0.4 * 1.3,
+        )
+        mesh = dp.make_mesh(axis_name=dom.AXIS, device_type=dev.type)
+        # every rank draws the same global state from the seed and keeps
+        # its own slab's block
+        state = _box_state(n, box_lo, box_hi, 0.4, 0.3, hetero=True,
+                           device="cpu")
+        st = dom.shard_domain_state(dom.distribute(state, dcfg), mesh)
+        step = dom.make_domain_step(dcfg, cfg, mesh)
+
+        st, stats = step(st)
+        fence(st.pos)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, stats = step(st)
+        fence(st.pos)
+        dt = time.perf_counter() - t0
+        alive = dp.sum_ints(int(active_mask(st).sum()), mesh)
+        return {
+            "config": 5,
+            "particles": n,
+            "shards": shards,
+            "backend": backend,
+            "steps_per_sec": steps / dt,
+            "particle_steps_per_sec": steps / dt * n,
+            "halo_overflow_last_step": int(stats[0]),
+            "migrate_overflow_last_step": int(stats[1]),
+            "cell_overflow_last_step": int(stats[2]),
+            "active_particles": alive,
+        }
 
 
 CONFIGS = {1: config_1, 2: config_2, 3: config_3, 4: config_4, 5: config_5}

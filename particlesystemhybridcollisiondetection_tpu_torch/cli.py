@@ -12,6 +12,9 @@ button) plus keyboard modes.  Subcommands:
   gridviz   broad-phase occupancy report (BVH-visualization analog)
   p2pbox    gravity-box particle-particle demo (benchmark configs 1/2)
   config    a benchmark configuration of ``bench/configs.py`` by number
+            (``config --id 5`` alone runs one rank; ``torchrun
+            --nproc-per-node=N -m <package> config --id 5`` runs N, and rank
+            0 prints the result)
 
 Run as ``python -m particlesystemhybridcollisiondetection_tpu_torch <cmd>
 ...``.  Every subcommand runs on ``--device`` (default ``cuda``, which
@@ -243,7 +246,11 @@ def cmd_config(args) -> int:
         kwargs["steps"] = args.steps
     if args.particles is not None and args.id in (1, 2, 4, 5):
         kwargs["n"] = args.particles
-    print(json.dumps(CONFIGS[args.id](**kwargs)))
+    out = CONFIGS[args.id](**kwargs)
+    # under torchrun (config 5) every rank returns the same dict: rank 0
+    # prints it
+    if os.environ.get("RANK", "0") == "0":
+        print(json.dumps(out))
     return 0
 
 

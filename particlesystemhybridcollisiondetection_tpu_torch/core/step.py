@@ -6,8 +6,10 @@ Port of the JAX package's ``core/step.py``: the brute-force oracle step
 (``make_spatial_step_bruteforce``), the grid steps
 (``make_spatial_step_grid``: packed, stream, dense), the screen-space and
 hybrid steps, the episode and trajectory runners, the
-sorted pipeline (spatial and hybrid), the runner with its ``camera=``
-(hybrid) stage, and the p2p entry points (``make_p2p_step``,
+sorted pipeline (spatial and hybrid) and its runner, with the runner's
+``camera=`` (hybrid) stage and ``mesh=`` (one process per rank, each on
+its slice of the particles; ``parallel/data_parallel.py``) on all three,
+and the p2p entry points (``make_p2p_step``,
 ``make_p2p_episode_runner``, at the end of this file).  The hybrid
 method runs the screen-space stage first; its undecided mask zeroes the
 candidate counts of decided particles in the exact stage.  One sorted
@@ -77,6 +79,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
     bake_camera,
     screen_space_collide,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_parallel as dp
 
 
 class HostSyncs:
@@ -885,10 +888,17 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
     )
 
 
-def _refuse(mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device (mesh=) is not ported yet: ROADMAP.md queue A9")
+def _mesh_device(mesh, device) -> torch.device:
+    """The device a sorted factory builds on: ``device``, or with a mesh
+    this rank's device (its type must be ``device``'s)."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    mdev = dp.rank_device(dp.check_mesh(mesh))
+    if mdev.type != dev.type:
+        raise ValueError(f"device {dev} does not match the mesh's "
+                         f"{mesh.device_type!r}")
+    return mdev
 
 
 def make_spatial_step_sorted(
@@ -910,13 +920,20 @@ def make_spatial_step_sorted(
     ``cells_lookup``: "kernel" (cells kernel B2), "gather" (``cells2``
     gather) or "auto" (kernel on CUDA when the grid fits the code table).
     The step's ``syncs`` attribute counts its host reads.
+
+    ``mesh`` (a 1-D ``DeviceMesh``, ``parallel/data_parallel.py``): the
+    step takes and returns this rank's slice of the particles, each rank
+    sorts, windows and rescues its own slice (the sort is a locality
+    hint, not a semantic ordering), and ``window_overflow`` is summed
+    over the mesh, so every rank returns the global value.  No other
+    collective runs.
     """
-    _refuse(mesh=mesh)
     sp = _build_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
-        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+        cells_lookup=cells_lookup, dense_demote=dense_demote,
+        device=_mesh_device(mesh, device),
     )
-    return _sorted_step(sp, None, with_stats)
+    return _sorted_step(sp, None, with_stats, mesh)
 
 
 def make_hybrid_step_sorted(
@@ -938,19 +955,21 @@ def make_hybrid_step_sorted(
     candidate counts of decided particles zeroed (the undecided mask
     rides the sort as a payload row).  Integration is fused into the
     window kernel for every particle.  Options as in
-    ``make_spatial_step_sorted``."""
-    _refuse(mesh=mesh)
+    ``make_spatial_step_sorted``, ``mesh`` included."""
     sp = _build_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
-        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+        cells_lookup=cells_lookup, dense_demote=dense_demote,
+        device=_mesh_device(mesh, device),
     )
     return _sorted_step(sp, bake_camera(triangles, camera, normals,
-                                        device=sp.gravity.device), with_stats)
+                                        device=sp.gravity.device), with_stats,
+                        mesh)
 
 
-def _sorted_step(sp: _Sorted, tex, with_stats: bool):
+def _sorted_step(sp: _Sorted, tex, with_stats: bool, mesh=None):
     """One sorted step per call, state in and out in the caller's
-    particle order; with camera textures ``tex``, the hybrid step."""
+    particle order; with camera textures ``tex``, the hybrid step.  With
+    a mesh, the overflow of ``with_stats`` is summed over its ranks."""
     cfg = sp.cfg
     syncs = HostSyncs()
 
@@ -982,7 +1001,11 @@ def _sorted_step(sp: _Sorted, tex, with_stats: bool):
         out = state._replace(
             pos=new_pos, vel=new_vel, collisions=state.collisions + hits
         )
-        return (out, {"window_overflow": n_over}) if with_stats else out
+        if not with_stats:
+            return out
+        if mesh is not None:
+            n_over = dp.sum_ints(n_over, mesh)
+        return out, {"window_overflow": n_over}
 
     step.syncs = syncs
     return step
@@ -992,10 +1015,14 @@ class SortedEpisodeRunner:
     """Episode runner with PERSISTENT sorted order (see
     make_sorted_episode_runner).  ``runner(state, num_steps)`` returns
     the state in the original particle order; ``syncs.count`` and
-    ``steps`` count host reads and steps over all calls."""
+    ``steps`` count host reads and steps over all calls.  With a ``mesh``
+    the runner takes and returns this rank's slice, and its overflows are
+    summed over the mesh: at every step under ``resort_every="auto"``,
+    which decides each re-sort from the sum, else once per call and only
+    for ``with_stats``."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
-                 rescue_chunk: int, rescue_compact: bool, tex=None):
+                 rescue_chunk: int, rescue_compact: bool, tex=None, mesh=None):
         if resort_every != "auto" and (
                 not isinstance(resort_every, int) or resort_every < 1):
             raise ValueError(f"resort_every must be a positive int or "
@@ -1006,6 +1033,7 @@ class SortedEpisodeRunner:
         self.rescue_chunk = rescue_chunk
         self.rescue_compact = rescue_compact
         self.tex = tex
+        self.mesh = mesh
         self.syncs = HostSyncs()
         self.steps = 0
 
@@ -1075,16 +1103,24 @@ class SortedEpisodeRunner:
         overflows = []
         # "auto": re-sort when overflow exceeds the overflow measured
         # right after the most recent sort by resort_threshold (step 0
-        # establishes the order)
+        # establishes the order).  With a mesh the overflow is summed
+        # first, so every rank takes the same branch at every step; the
+        # sum is the loop's only collective and every rank reaches it
+        # each step
+        auto = self.resort_every == "auto"
         do_sort, base = True, 0
         for i in range(num_steps):
-            if self.resort_every != "auto":
+            if not auto:
                 do_sort = i % self.resort_every == 0
             rows8, aux, n_over = self._step(rows8, aux, do_sort)
-            if self.resort_every == "auto":
+            if auto:
+                if self.mesh is not None:
+                    n_over = dp.sum_ints(n_over, self.mesh)
                 base = n_over if do_sort else base
                 do_sort = n_over > base + self.resort_threshold
             overflows.append(n_over)
+        if with_stats and not auto and self.mesh is not None:
+            overflows = dp.sum_int_list(overflows, self.mesh)
         self.steps += num_steps
         # restore the original order once
         ids = aux[1].long()
@@ -1129,20 +1165,27 @@ def make_sorted_episode_runner(
     pre-pass): each step runs the HYBRID method -- the screen-space stage
     on the carried rows first, its undecided mask gating the exact stage,
     as in ``make_hybrid_step_sorted`` without that step's sort and unsort
-    of every step.  ``mesh`` (multi-device) is not ported yet and raises
-    NotImplementedError.
+    of every step.
+
+    ``mesh`` (a 1-D ``DeviceMesh``): the runner takes and returns this
+    rank's slice, whose particle count must divide by 1024.  Each rank
+    keeps its own persistent order and restores its own ids (local sorts
+    never move a particle to another rank).  "auto" sums each step's
+    overflow over the mesh and decides the re-sort from that sum; with a
+    fixed ``resort_every`` the overflows of ``with_stats`` are summed
+    once, after the call's last step.
     """
-    _refuse(mesh=mesh)
     check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
     sp = _build_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
-        cells_lookup=cells_lookup, dense_demote=dense_demote, device=device,
+        cells_lookup=cells_lookup, dense_demote=dense_demote,
+        device=_mesh_device(mesh, device),
     )
     tex = None
     if camera is not None:
         tex = bake_camera(triangles, camera, normals, device=sp.gravity.device)
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
-                               rescue_chunk, rescue_compact, tex=tex)
+                               rescue_chunk, rescue_compact, tex=tex, mesh=mesh)
 
 
 def make_method_step(scene, method, camera_index: int = 0,

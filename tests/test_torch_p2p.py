@@ -298,5 +298,7 @@ def test_configs_run_small_and_unported_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(tscenes, "_REFERENCE_MESH_DIR", str(tmp_path))
     with pytest.raises(FileNotFoundError):
         tconfigs.CONFIGS[3](device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tconfigs.CONFIGS[5]()
+    # config 5 (the domain-decomposed box) is ported: alone it runs as a
+    # group of one rank (tests/test_torch_domain.py holds it further)
+    out = tconfigs.CONFIGS[5](steps=1, n=2000, device="cpu")
+    assert out["config"] == 5 and out["active_particles"] == 2000

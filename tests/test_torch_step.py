@@ -272,10 +272,12 @@ def test_runner_matches_per_step_and_jax(fast):
 
 def test_unported_options_raise(fast):
     cfg = fast.config
-    with pytest.raises(NotImplementedError, match="A9"):
+    # mesh= is ported (tests/test_torch_parallel*.py); what is not a 1-D
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_sorted_episode_runner(fast.triangles, cfg, camera=fast.cameras[0],
                                          mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_spatial_step_sorted(fast.triangles, cfg, mesh=object(),
                                        device="cpu")
     # "dense" and "stream" are ported now; an unknown variant still raises
