@@ -7,7 +7,10 @@ On a host with several cards phase 9 adds a run over NCCL across them.
 
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
-     versions, and build the three CUDA sources of ops/cuda/csrc;
+     versions, and build the three CUDA sources of ops/cuda/csrc; bake
+     DragonScene's four cameras (1920 x 1080, corner normals) on the host
+     into the disk cache, one spawned worker process per camera not yet
+     there (``prebake``), for phases 5, 8 and 10;
   2. drive the spatial main path: the persistent sorted episode runner of
      the spatial method on DragonScene at 1,048,576 particles (128^2 x 64
      layers), cells lookup "kernel", resort_every "auto", 700 steps from
@@ -25,7 +28,7 @@ Phases (each raises on failure; nothing is caught and passed over):
      dense-cell demotion off and print ms/step and overflow beside the
      default's (a reading; the default is unchanged);
   5. drive the hybrid path (``drive_hybrid``) on the same scene and
-     spawn: bake "Main Camera" (1920 x 1080, corner normals) on the host,
+     spawn: load "Main Camera"'s bake,
      run the hybrid persistent runner 700 steps (cells lookup "kernel",
      resort_every "auto"; launch counters reset just before), print the
      undecided share, host reads and overflow, and check it as phase 2
@@ -76,11 +79,25 @@ Phases (each raises on failure; nothing is caught and passed over):
      which must repeat it bit for bit), gathered and held bit for bit
      against the single-device runner on all 1,048,576 lanes, both
      overflow sums printed; in every rank B1 (main window) and B2 against
-     their plain versions on the rank's state at step 650; config 5, 20
+     their plain versions on the rank's state at step 650; config 5, 5
      timed steps (500,000 particles per rank), every particle kept and no
      halo or migration overflow.  Each rank's launches on the mesh
      runner go into the kernel line as ``launches_mesh``.  Last, the
      ``parallel/dryrun.py`` entry point on the card with 2 ranks;
+ 10. (after 9; ``drive_protocol``) the reference protocol's particle ladder
+     through ``bench/protocol.py::run_protocol`` on DragonScene, plan
+     "kernel", no accuracy CSV, launch counters reset just before each
+     sweep: (a) k = 7, 2,097,120 particles (the reference cap; 32 sentinel
+     lanes), the three methods on "Main Camera", 2001 steps: rows,
+     collisions, ms/step by window; through a tap on the harness's runner
+     of the spatial episode (``_EpisodeTap``), that episode's last state
+     (no NaN, sentinels inert and never a live lane of the plan), its
+     overflow per step, and on its state at step 1500 B1 (main, rescue
+     chunk, one lane per row) and B2 against their plain versions; (b) k = 0, the three
+     methods on all four cameras, 50 steps: a row for each, and each
+     camera's undecided mask on the k = 7 state (active lanes, and the
+     falling sentinels, which must stay out of the hybrid's plan).  The
+     launches go into the kernel line as the ":protocol" entries;
   7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
@@ -237,7 +254,8 @@ def span_columns(torch, col0, bound, n_cols: int) -> int:
 def sorted_plan(torch, sp, state, undecided=None):
     """Sort and plan a state as the step does: the cells kernel's
     arguments, the window kernel's at the main window, on the first
-    phase-1 rescue chunk and on a phase-2 launch.  ``undecided`` (hybrid): the
+    phase-1 rescue chunk and on a phase-2 launch, and the main plan's
+    overflow mask (sorted order).  ``undecided`` (hybrid): the
     screen-space stage's mask, which zeroes the other lanes' counts."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -273,7 +291,7 @@ def sorted_plan(torch, sp, state, undecided=None):
              "rescue chunk": ((*chunk_state, rel_c, cnt_c, ws_c, kcap_c, sp.tables),
                               sp.rescue_window),
              "one lane per row": ((*args2, sp.tables), sp.rescue_window)},
-            int(overflow.sum()))
+            overflow)
 
 
 def b1_vs_plain(torch, args, w, kw) -> dict:
@@ -315,12 +333,104 @@ def b2_vs_plain(torch, b2_args) -> dict:
             "misses": int((~hit_cnt).sum())}
 
 
-def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sorted_plan,
-                 b2_case, window_case) -> dict:
+def window_case(torch, card: str, sp, tag: str, args, w: int) -> dict:
+    """One window-kernel case on the plan of ``sp`` (``sorted_plan``'s
+    tables and constants): candidate spread, agreement with the plain
+    version (raises on any difference), times and bound.  Returns its
+    kernel-table numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    cfg = sp.cfg
+    kw = dict(k_static=sp.meta.max_tris_per_cell, gravity=cfg.gravity,
+              dt=cfg.dt, backoff=cfg.backoff)
+    rel, count, ws, k_cap = args[4:8]
+    m = args[0].shape[1]
+    ws_l = ws.reshape(-1).repeat_interleave(wk.LANE)
+    kb = torch.clamp(k_cap, max=sp.meta.max_tris_per_cell).repeat_interleave(wk.BLOCK)
+    bound = torch.clamp(torch.minimum(torch.minimum(count, kb), w - rel), min=0)
+    n_cand = int(bound.sum())
+    row_sum = bound.reshape(-1, wk.LANE).sum(dim=1)
+    split = wk.row_split(m, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[{card}] B1 {tag} (w={w}, N={m}, {m // wk.LANE} rows x {split} "
+          f"blocks): candidates per lane max {int(bound.max())}, 99.9th "
+          f"percentile {float(torch.quantile(bound.float(), 0.999)):.1f}, mean "
+          f"{float(bound.float().mean()):.4f}; per row max {int(row_sum.max())}, "
+          f"mean {float(row_sum.float().mean()):.2f}, rows with candidates "
+          f"{int((row_sum > 0).sum())}; total {n_cand}")
+
+    c = b1_vs_plain(torch, args, w, kw)
+    err = c["err"]
+    print(f"[{card}] B1 {tag} vs plain: hit differs on {c['hit_bad']} active "
+          f"lanes, pos/vel differ in any bit on {c['bits']} active lanes, "
+          f"outside rtol={RTOL} atol={ATOL} on {c['far']} lanes, max |diff| "
+          f"{err:.3e}, hits {c['hits']}")
+    if c["hit_bad"] or c["far"] or c["bits"]:
+        raise RuntimeError(f"window kernel ({tag}) disagrees with its plain version")
+
+    t = timed(torch, lambda: wk.window_collide_sorted(*args, w=w, **kw),
+              lambda: wk.window_collide_sorted_plain(*args, w=w, **kw))
+    # bound: lane inputs and outputs, every distinct candidate row once
+    # (36 B), and the float operations of the candidates evaluated
+    n_rows = span_columns(torch, (ws_l + rel).long(), bound,
+                          sp.tables.pairs.shape[1])
+    n_bytes = m * (12 + 12 + 4 + 4 + 4 + 4) + 4 * (m // wk.LANE) \
+        + 4 * (m // wk.BLOCK) + 36 * n_rows + m * (12 + 12 + 4)
+    n_ops = WINDOW_OPS_PER_CANDIDATE * n_cand + WINDOW_OPS_PER_LANE * m
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
+    print(f"[{card}] B1 {tag}: {t['ms']:.4f} ms by events around the call, "
+          f"{ms_text(t['device_ms'])} on the device "
+          f"({by_kernel(t.pop('by_kernel'))}); plain {t['plain_ms']:.4f} ms; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({n_cand} candidates, {n_rows} "
+          f"distinct rows, {n_bytes} B = {bytes_ms:.4f} ms, {n_ops:.3e} ops = "
+          f"{ops_ms:.4f} ms)")
+    return {"max_abs_err": err, **t,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def b2_case(torch, card: str, tag: str, b2_args) -> dict:
+    """The cells kernel against its plain version (raises on any
+    difference), timed, with its bound.  Returns its kernel-table
+    numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    key_s = b2_args[0]
+    n = key_s.numel()
+    c = b2_vs_plain(torch, b2_args)
+    b2_bad = c["bad"]
+    print(f"[{card}] B2 cells lookup ({tag}) vs plain at N={n}: {b2_bad} lanes "
+          f"differ (misses {c['misses']})")
+    if b2_bad:
+        raise RuntimeError(f"cells kernel disagrees with its plain version "
+                           f"on {b2_bad} lanes")
+    b2 = timed(
+        torch, lambda: wk.cells_window_lookup(*b2_args, wc=S._CODE_WC),
+        lambda: wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC))
+    del b2["by_kernel"]
+    # B2 bound: key in, (start, count) out, lo/hi, one table entry
+    # per distinct key
+    n_keys = int(torch.unique(key_s).numel())
+    b2_bytes = 4 * n + 8 * n + 8 * (n // wk.LANE) + 4 * n_keys
+    b2_bound = b2_bytes / H100_BYTES_PER_S * 1e3
+    print(f"[{card}] B2 cells lookup ({tag}): {b2['ms']:.4f} ms by events "
+          f"around the call, {ms_text(b2['device_ms'])} on the device; plain "
+          f"{b2['plain_ms']:.4f} ms; bound {b2_bound:.4f} ms ({b2_bytes} B, "
+          f"{n_keys} distinct keys)")
+    return {"max_abs_err": 0.0, **b2, "bound_ms": b2_bound, "bound_by": "bytes"}
+
+
+def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp) -> dict:
     """Phase 5: the hybrid path at full width on the spatial path's scene
     and spawn, and the screen-space method beside it.  Returns the hybrid
     path's kernel launches and the kernel-table numbers of B1 and B2 on
-    its state at step 650."""
+    its state at step 650 (``sp``: the main path's tables and constants,
+    which the hybrid runner's equal)."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
@@ -427,15 +537,16 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sorted_plan
 
     # ---- B1 and B2 against their plain versions on the masked plan ----
     st, und = ss.screen_space_collide(h650, tex, gravity, cfg.dt, hybrid=True)
-    b2_args, cases, n_ovf = sorted_plan(st, und)
+    b2_args, cases, overflow = sorted_plan(torch, sp, st, und)
     print(f"[{card}] hybrid state at step {SNAP_STEP}: undecided "
-          f"{int(und.sum())} lanes, {n_ovf} overflow lanes in the masked main plan; "
+          f"{int(und.sum())} lanes, {int(overflow.sum())} overflow lanes in the masked main plan; "
           f"the screen-space stage collides "
           f"{int((st.collisions - h650.collisions).sum())} particles in this step")
-    numbers = {"b2": b2_case(f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
+    numbers = {"b2": b2_case(torch, card, f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
                "launches": launches}
     for tag, (args, w) in cases.items():
-        numbers["b1"][tag] = window_case(f"hybrid {tag}, step {SNAP_STEP}", args, w)
+        numbers["b1"][tag] = window_case(torch, card, sp, f"hybrid {tag}, step {SNAP_STEP}",
+                                         args, w)
 
     # ---- the runner against the per-step path, 20 steps from step 600 ----
     per_step = S.make_hybrid_step_sorted(scene.triangles, cfg, cam, normals,
@@ -978,7 +1089,7 @@ def drive_cli(torch, card: str, snap) -> dict:
 
 
 MESH_STEPS = 50  # phase 9: steps 600-650 of the main path, on a mesh
-CONFIG5_STEPS = 20
+CONFIG5_STEPS = 5  # few, to keep the whole script near half its time limit
 
 
 def _mesh_rank(rank: int, world: int, workdir: str) -> None:
@@ -1175,6 +1286,301 @@ def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dic
     return launches
 
 
+# phase 10: the reference protocol's particle ladder (bench/protocol.py)
+PROTOCOL_K = 7  # 128^2 x 2^7 = 2,097,152 spawns, cut to the reference cap
+PROTOCOL_STEPS = 2001  # the reference's lifetime_steps: nothing cut
+PROTOCOL_SNAP_STEP = 1500
+PROTOCOL_WINDOWS = ((1, 151), (151, 600), (600, 1400), (1400, 2001))
+CAMERA_STEPS = 50  # sweep (b): k = 0 on the four cameras
+
+
+def _prebake(cam_index: int) -> float:
+    """Bake one DragonScene camera into the disk cache (``PSYS_BAKE_CACHE``)
+    on the host, in a worker process of ``prebake``.  Returns its seconds."""
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
+
+    scene = dragon_scene()
+    t0 = time.perf_counter()
+    ss.bake_camera(scene.triangles, scene.cameras[cam_index], scene.corner_normals,
+                   device="cpu")
+    return time.perf_counter() - t0
+
+
+def prebake(card: str) -> None:
+    """Bake DragonScene's four cameras (1920 x 1080, corner normals) into
+    the disk cache before any phase needs them: one spawned worker process
+    per camera not yet cached, all at once (each bake is a minute of
+    single-threaded host NumPy), joined before the function returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
+
+    scene = dragon_scene()
+    pending = [i for i, cam in enumerate(scene.cameras) if not os.path.exists(
+        ss.bake_path(scene.triangles, cam, scene.corner_normals))]
+    if not pending:
+        print(f"[{card}] bakes: all {len(scene.cameras)} cameras in the disk cache")
+        return
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(pending),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        bake_s = list(pool.map(_prebake, pending))
+    print(f"[{card}] bakes of "
+          + ", ".join(f"{scene.cameras[i].name!r} {t:.1f} s"
+                      for i, t in zip(pending, bake_s))
+          + f" ({scene.cameras[0].width}x{scene.cameras[0].height}, corner normals, "
+          f"host, one worker process each): {time.perf_counter() - t0:.1f} s in all")
+
+
+class _EpisodeTap:
+    """Stands in for the sorted runner that ``bench/harness.py`` builds for
+    the spatial episode, so phase 10 sees the episode the protocol runs:
+    every call runs with ``with_stats`` (the overflow of each step), a call
+    that would pass ``snap_step`` is split there to keep that state, and
+    the last state is kept.  The states are the runner's.  A call from the
+    state of the first call restarts the count: the harness warms the
+    runner from the spawn state, then runs the episode from it."""
+
+    def __init__(self, runner, snap_step: int):
+        self.runner, self.snap_step = runner, snap_step
+        self.sp = runner.sp
+        self.spawn = None
+
+    def __call__(self, state, num_steps: int):
+        if self.spawn is None or state is self.spawn:
+            self.spawn = state
+            self.done, self.overflow, self.snap = 0, [], None
+            self.syncs0 = self.runner.syncs.count
+        parts = [num_steps]
+        if self.done < self.snap_step < self.done + num_steps:
+            parts = [self.snap_step - self.done, self.done + num_steps - self.snap_step]
+        for n in parts:
+            state, ovf = self.runner(state, n, with_stats=True)
+            self.overflow += ovf
+            self.done += n
+            if self.done == self.snap_step:
+                self.snap = state
+        self.last = state
+        return state
+
+
+def drive_protocol(torch, card: str) -> dict:
+    """Phase 10: the reference protocol's particle ladder on DragonScene
+    through ``bench/protocol.py::run_protocol`` (plan "kernel", no accuracy
+    CSV, output under build/protocol/; the cameras' bakes come from
+    the disk cache that ``prebake`` filled).
+
+    (a) k = 7 (2,097,120 particles, 32 sentinel lanes), the three methods
+    on "Main Camera", one run of 2001 steps: every row at 2,097,120 with
+    collisions; ms/step by window from the perf CSV; B1 and B2 launched.
+    The harness's runner of the spatial episode is tapped (``_EpisodeTap``):
+    on that episode's last state no NaN on active lanes, the sentinels at
+    1e38 with no horizontal velocity and no hit, never a live lane of the
+    plan; its overflow per step; on its state at step 1500, B1 (main
+    window, rescue chunk, one lane per row) and B2 against their plain
+    versions.
+
+    (b) k = 0, the three methods on all four cameras, one run of 50
+    steps: a row for each; each camera's undecided mask on the k = 7 state
+    at step 2001 holds active lanes and the falling sentinels, which carry
+    no candidates in the hybrid's plan.
+
+    Returns the launches of each sweep and the kernel-table numbers of
+    the step-1500 cases."""
+    from particlesystemhybridcollisiondetection_tpu_torch.bench import harness as H
+    from particlesystemhybridcollisiondetection_tpu_torch.bench import protocol as P
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    t_phase = time.perf_counter()
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "protocol")
+    scene = dragon_scene()
+    cfg = scene.config
+    methods = P.METHODS
+    n_real = cfg.spawn_count(1 << PROTOCOL_K)
+
+    # ---- 10(a): k = 7, the three methods on "Main Camera", 2001 steps ----
+    taps = []
+
+    def tapped_runner(triangles, cfg_, **kw):
+        runner = make_runner(triangles, cfg_, **kw)
+        if kw.get("camera") is None:  # the spatial episode's
+            taps.append(_EpisodeTap(runner, PROTOCOL_SNAP_STEP))
+            return taps[-1]
+        return runner
+
+    make_runner = H.make_sorted_episode_runner
+    H.make_sorted_episode_runner = tapped_runner
+    wk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rows = P.run_protocol(scene, [PROTOCOL_K], methods, num_runs=1,
+                              num_steps=PROTOCOL_STEPS, out_dir=os.path.join(out, "k7"),
+                              accuracy=False, plan="kernel", camera_indices=[0])
+    finally:
+        H.make_sorted_episode_runner = make_runner
+    wall_a = time.perf_counter() - t0
+    launches_a = dict(wk.LAUNCHES)
+    cam0 = scene.cameras[0].name
+    if [(r["method"], r["camera"]) for r in rows] != [(m, cam0) for m in methods]:
+        raise RuntimeError(f"protocol k={PROTOCOL_K}: rows {rows}")
+    for r in rows:
+        if r["particles"] != n_real or r["collisions"] <= 0 or not r["mean_ms"] > 0:
+            raise RuntimeError(f"protocol k={PROTOCOL_K}: row {r}")
+    with open(os.path.join(out, "k7", f"results_perf_{scene.name}_{n_real}.csv")) as f:
+        lines = f.read().splitlines()
+    names = {H.METHOD_NAMES[m]: m for m in methods}
+    per_step: dict = {}
+    for line in lines:
+        a, b = line.split(";")
+        if b == "ms":
+            cur = per_step.setdefault(names[a], [])
+        else:
+            cur.append(float(b))
+    # row j of the perf CSV is step j + 1 (step 0 is the harness's warm step)
+    if any(len(v) != PROTOCOL_STEPS - 1 for v in per_step.values()):
+        raise RuntimeError(f"perf CSV rows {[len(v) for v in per_step.values()]}")
+    for r in rows:
+        v = per_step[r["method"]]
+        print(f"[{card}] protocol k={PROTOCOL_K}, {r['method']} ({cam0!r}), "
+              f"{r['particles']} particles, {PROTOCOL_STEPS} steps: mean "
+              f"{r['mean_ms']:.3f} ms/step; "
+              + ", ".join(f"steps {a}-{b} {sum(v[a - 1:b - 1]) / (b - a):.3f}"
+                          for a, b in PROTOCOL_WINDOWS)
+              + f" ms/step (harness chunks of 50 steps); collisions {r['collisions']}")
+    if launches_a["cells_window_lookup"] < 2 * PROTOCOL_STEPS or \
+            launches_a["window_collide_sorted"] <= 2 * PROTOCOL_STEPS:
+        raise RuntimeError(f"protocol k={PROTOCOL_K} launches {launches_a}: a kernel "
+                           "of the path never launched, or the rescue never did")
+    print(f"[{card}] protocol k={PROTOCOL_K}: {wall_a:.1f} s; launches {launches_a}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- the spatial episode's own states, through the tap ----
+    if len(taps) != 1 or taps[0].done != PROTOCOL_STEPS or taps[0].snap is None:
+        raise RuntimeError("the spatial episode's runner was not tapped as expected")
+    tap = taps[0]
+    sp, s, snap, ovf = tap.sp, tap.last, tap.snap, tap.overflow
+    mask = active_mask(s)
+    n_pad = s.pos.shape[-1] - n_real
+    pad = slice(n_real, None)
+    nan_lanes = int((~torch.isfinite(s.pos[:, mask]).all(0)).sum()
+                    + (~torch.isfinite(s.vel[:, mask]).all(0)).sum())
+    coll = int(s.collisions[mask].sum())
+    vmax = float(torch.sqrt((s.vel[:, mask] ** 2).sum(0).max()))
+    sv = s.vel[:, pad]
+    sentinels_ok = bool(
+        n_pad == -n_real % wk.BLOCK and int(mask.sum()) == n_real and not mask[pad].any()
+        and (s.pos[:, pad] == 1e38).all() and (sv[0] == 0).all() and (sv[2] == 0).all()
+        and torch.isfinite(sv[1]).all() and (sv[1] == sv[1, 0]).all()
+        and (s.collisions[pad] == 0).all())
+    print(f"[{card}] protocol k={PROTOCOL_K}, the spatial episode at step "
+          f"{PROTOCOL_STEPS}: overflow per step max {max(ovf)}, median "
+          f"{sorted(ovf)[len(ovf) // 2]}, above {S._COMPACT_CAP} on "
+          f"{sum(o > S._COMPACT_CAP for o in ovf)} steps; host reads "
+          f"{(tap.runner.syncs.count - tap.syncs0) / PROTOCOL_STEPS:.2f}/step; "
+          f"collisions {coll} (row {rows[methods.index('spatial')]['collisions']}); "
+          f"NaN/inf on {nan_lanes} active lanes; max speed {vmax:.2f} u/s (bound "
+          f"g*dt*steps {abs(cfg.gravity[1]) * cfg.dt * PROTOCOL_STEPS:.1f}, lookup cover "
+          f"2*(expand - r)/dt {2 * (cfg.grid.expand - cfg.particle_radius) / cfg.dt:.1f}); "
+          f"{n_pad} sentinel lanes: pos 1e38, vel (0, {float(sv[1, 0]):.4f}, 0) "
+          f"(integrated as every lane is), hits {int(s.collisions[pad].sum())}: "
+          f"{'inert' if sentinels_ok else 'NOT inert'}")
+    if nan_lanes:
+        raise RuntimeError(f"protocol k={PROTOCOL_K}: {nan_lanes} active lanes hold NaN/inf")
+    if not sentinels_ok:
+        raise RuntimeError(f"protocol k={PROTOCOL_K}: sentinel lanes moved, collided "
+                           "or counted")
+    if coll != rows[methods.index("spatial")]["collisions"] or len(ovf) != PROTOCOL_STEPS:
+        raise RuntimeError("the tapped states are not the spatial row's episode")
+
+    # ---- B1 and B2 against their plain versions on the state at step 1500 ----
+    def sentinels_in_plan(tag, state, undecided=None):
+        """The sentinel lanes in ``state``'s plan: where they sort, B2's
+        count for them, and whether any is a live lane (a candidate count
+        or a place in the overflow mask), which raises.  Returns the plan."""
+        b2_args, cases, overflow = sorted_plan(torch, sp, state, undecided)
+        pos_s, count_main = cases["main"][0][0], cases["main"][0][5]
+        sent_s = pos_s[0] > 5e37
+        _, cnt_b2 = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
+        where = torch.nonzero(sent_s).flatten()
+        print(f"[{card}] {tag}: {int(overflow.sum())} overflow lanes in the main "
+              f"plan; the {int(sent_s.sum())} sentinel lanes sort to positions "
+              f"{int(where.min())}-{int(where.max())}, B2 count there "
+              f"{sorted(set(cnt_b2[sent_s].tolist()))}, in the overflow mask "
+              f"{int(overflow[sent_s].sum())}, main-plan count "
+              f"{int(count_main[sent_s].abs().sum())}")
+        if int(sent_s.sum()) != n_pad or overflow[sent_s].any() or count_main[sent_s].any():
+            raise RuntimeError(f"{tag}: a sentinel lane is a live lane of the plan")
+        return b2_args, cases
+
+    b2_args, cases = sentinels_in_plan(
+        f"protocol k={PROTOCOL_K}, state at step {PROTOCOL_SNAP_STEP}", snap)
+    numbers = {"b2": b2_case(torch, card, f"protocol k={PROTOCOL_K}, step "
+                             f"{PROTOCOL_SNAP_STEP}", b2_args), "b1": {}}
+    for tag, (args, w) in cases.items():
+        numbers["b1"][tag] = window_case(
+            torch, card, sp, f"protocol k={PROTOCOL_K} {tag}, step {PROTOCOL_SNAP_STEP}",
+            args, w)
+
+    # ---- 10(b): k = 0, the three methods on the four cameras ----
+    wk.reset_launches()
+    t0 = time.perf_counter()
+    rows0 = P.run_protocol(scene, [0], methods, num_runs=1, num_steps=CAMERA_STEPS,
+                           out_dir=os.path.join(out, "k0_cameras"), accuracy=False,
+                           plan="kernel", spatial_all_cameras=True)
+    wall_b = time.perf_counter() - t0
+    launches_b = dict(wk.LAUNCHES)
+    want = [(m, cam.name) for m in methods for cam in scene.cameras]
+    got = [(r["method"], r["camera"]) for r in rows0]
+    if sorted(got) != sorted(want) or len(got) != len(want) or any(
+            r["particles"] != cfg.spawn_count(1) or not r["mean_ms"] > 0 for r in rows0):
+        raise RuntimeError(f"protocol k=0 on the four cameras: rows {rows0}")
+    if min(launches_b.values()) <= 0:
+        raise RuntimeError(f"protocol k=0 launches {launches_b}")
+    print(f"[{card}] protocol k=0, {CAMERA_STEPS} steps on the four cameras: "
+          f"{len(rows0)} rows ("
+          + ", ".join(f"{r['method']}/{r['camera']} {r['mean_ms']:.3f} ms/step"
+                      for r in rows0)
+          + f"); {wall_b:.1f} s; launches {launches_b}")
+    # the undecided mask on each camera: active lanes, plus the sentinel
+    # lanes once they fall (off screen, so undecided, as in the JAX package;
+    # tests/test_torch_screenspace.py::test_padding_lanes_inert), which
+    # must stay out of the hybrid's plan
+    for cam in scene.cameras:
+        tex = ss.bake_camera(scene.triangles, cam, scene.corner_normals)
+        st, und = ss.screen_space_collide(s, tex, sp.gravity, cfg.dt, hybrid=True)
+        outside = und & ~mask
+        print(f"[{card}] {cam.name!r} on the k={PROTOCOL_K} state at step "
+              f"{PROTOCOL_STEPS}: undecided share of the active lanes "
+              f"{float(und[mask].float().mean()):.4f}; undecided lanes outside "
+              f"them {int(outside.sum())}, all sentinel lanes: "
+              f"{bool(not outside[:n_real].any())}")
+        if outside[:n_real].any():
+            raise RuntimeError(f"{cam.name}: the undecided mask holds lanes that are "
+                               "neither active nor sentinels")
+        sentinels_in_plan(f"hybrid plan on {cam.name!r}, k={PROTOCOL_K} state at step "
+                          f"{PROTOCOL_STEPS}", st, und)
+    print(f"[{card}] phase 10 (protocol ladder): {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_k7": launches_a, "launches_k0": launches_b, **numbers}
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1223,6 +1629,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
+    # the four cameras' bakes, in parallel, for phases 5, 8 and 10
+    prebake(card)
 
     # ---- phase 2: the main path ----
     t0 = time.perf_counter()
@@ -1295,95 +1704,15 @@ def main() -> int:
 
     # ---- phases 3 and 4: each kernel against its plain version and timed,
     # on the states at step 650 and at step 700 ----
-    kw = dict(k_static=sp.meta.max_tris_per_cell, gravity=cfg.gravity,
-              dt=cfg.dt, backoff=cfg.backoff)
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def plan(state, undecided=None):
-        return sorted_plan(torch, sp, state, undecided)
-
-    def window_case(tag, args, w):
-        """One window-kernel case: candidate spread, agreement with the
-        plain version, times and bound.  Returns its numbers."""
-        rel, count, ws, k_cap = args[4:8]
-        m = args[0].shape[1]
-        ws_l = ws.reshape(-1).repeat_interleave(wk.LANE)
-        kb = torch.clamp(k_cap, max=sp.meta.max_tris_per_cell).repeat_interleave(wk.BLOCK)
-        bound = torch.clamp(torch.minimum(torch.minimum(count, kb), w - rel), min=0)
-        n_cand = int(bound.sum())
-        row_sum = bound.reshape(-1, wk.LANE).sum(dim=1)
-        split = wk.row_split(m, sm_count)
-        print(f"[{card}] B1 {tag} (w={w}, N={m}, {m // wk.LANE} rows x {split} "
-              f"blocks): candidates per lane max {int(bound.max())}, 99.9th "
-              f"percentile {float(torch.quantile(bound.float(), 0.999)):.1f}, mean "
-              f"{float(bound.float().mean()):.4f}; per row max {int(row_sum.max())}, "
-              f"mean {float(row_sum.float().mean()):.2f}, rows with candidates "
-              f"{int((row_sum > 0).sum())}; total {n_cand}")
-
-        c = b1_vs_plain(torch, args, w, kw)
-        err = c["err"]
-        print(f"[{card}] B1 {tag} vs plain: hit differs on {c['hit_bad']} active "
-              f"lanes, pos/vel differ in any bit on {c['bits']} active lanes, "
-              f"outside rtol={RTOL} atol={ATOL} on {c['far']} lanes, max |diff| "
-              f"{err:.3e}, hits {c['hits']}")
-        if c["hit_bad"] or c["far"] or c["bits"]:
-            raise RuntimeError(f"window kernel ({tag}) disagrees with its plain version")
-
-        t = timed(torch, lambda: wk.window_collide_sorted(*args, w=w, **kw),
-                  lambda: wk.window_collide_sorted_plain(*args, w=w, **kw))
-        # bound: lane inputs and outputs, every distinct candidate row once
-        # (36 B), and the float operations of the candidates evaluated
-        n_rows = span_columns(torch, (ws_l + rel).long(), bound,
-                              sp.tables.pairs.shape[1])
-        n_bytes = m * (12 + 12 + 4 + 4 + 4 + 4) + 4 * (m // wk.LANE) \
-            + 4 * (m // wk.BLOCK) + 36 * n_rows + m * (12 + 12 + 4)
-        n_ops = WINDOW_OPS_PER_CANDIDATE * n_cand + WINDOW_OPS_PER_LANE * m
-        bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-        ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
-        print(f"[{card}] B1 {tag}: {t['ms']:.4f} ms by events around the call, "
-              f"{ms_text(t['device_ms'])} on the device "
-              f"({by_kernel(t.pop('by_kernel'))}); plain {t['plain_ms']:.4f} ms; bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms ({n_cand} candidates, {n_rows} "
-              f"distinct rows, {n_bytes} B = {bytes_ms:.4f} ms, {n_ops:.3e} ops = "
-              f"{ops_ms:.4f} ms)")
-        return {"max_abs_err": err, **t,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-
-    def b2_case(tag, b2_args):
-        """The cells kernel against its plain version, timed, with its
-        bound.  Returns its kernel-table numbers."""
-        key_s = b2_args[0]
-        c = b2_vs_plain(torch, b2_args)
-        b2_bad = c["bad"]
-        print(f"[{card}] B2 cells lookup ({tag}) vs plain at N={n}: {b2_bad} lanes "
-              f"differ (misses {c['misses']})")
-        if b2_bad:
-            raise RuntimeError(f"cells kernel disagrees with its plain version "
-                               f"on {b2_bad} lanes")
-        b2 = timed(
-            torch, lambda: wk.cells_window_lookup(*b2_args, wc=S._CODE_WC),
-            lambda: wk.cells_window_lookup_plain(*b2_args, wc=S._CODE_WC))
-        del b2["by_kernel"]
-        # B2 bound: key in, (start, count) out, lo/hi, one table entry
-        # per distinct key
-        n_keys = int(torch.unique(key_s).numel())
-        b2_bytes = 4 * n + 8 * n + 8 * (n // wk.LANE) + 4 * n_keys
-        b2_bound = b2_bytes / H100_BYTES_PER_S * 1e3
-        print(f"[{card}] B2 cells lookup ({tag}): {b2['ms']:.4f} ms by events "
-              f"around the call, {ms_text(b2['device_ms'])} on the device; plain "
-              f"{b2['plain_ms']:.4f} ms; bound {b2_bound:.4f} ms ({b2_bytes} B, "
-              f"{n_keys} distinct keys)")
-        return {"max_abs_err": 0.0, **b2, "bound_ms": b2_bound, "bound_by": "bytes"}
-
     b1 = {}
     for at, state in ((SNAP_STEP, snap), (N_STEPS, s)):
-        b2_args, cases, n_ovf = plan(state)
-        print(f"[{card}] state at step {at}: {n_ovf} overflow lanes in the main plan")
+        b2_args, cases, overflow = sorted_plan(torch, sp, state)
+        print(f"[{card}] state at step {at}: {int(overflow.sum())} overflow lanes in "
+              "the main plan")
         if at == SNAP_STEP:
-            b2 = b2_case(f"spatial, step {at}", b2_args)
+            b2 = b2_case(torch, card, f"spatial, step {at}", b2_args)
         for tag, (args, w) in cases.items():
-            b1[(tag, at)] = window_case(f"{tag}, step {at}", args, w)
+            b1[(tag, at)] = window_case(torch, card, sp, f"{tag}, step {at}", args, w)
 
     # ---- a reading, no default changed: steps 600-700 once more with the
     # dense-cell demotion off ----
@@ -1403,8 +1732,7 @@ def main() -> int:
           f"{nd_coll} (default {total_coll})")
 
     # ---- phase 5: the hybrid path on the same scene and spawn ----
-    hyb = drive_hybrid(torch, card, scene, state0, total_coll, plan,
-                       b2_case, window_case)
+    hyb = drive_hybrid(torch, card, scene, state0, total_coll, sp)
 
     # ---- phase 6: the particle-particle path ----
     b3 = drive_p2p(torch, card)
@@ -1416,6 +1744,10 @@ def main() -> int:
     # step 600 ----
     mesh_launches = drive_mesh(torch, card, snap600, snap, ovf_a,
                                t_a * 1000.0 / (SNAP_STEP - 600))
+
+    # ---- phase 10: the reference protocol's particle ladder, k = 7 and
+    # k = 0 on the four cameras ----
+    prot = drive_protocol(torch, card)
 
     def mesh_launch(key):
         return {w: [r[key] for r in ranks] for w, ranks in mesh_launches.items()}
@@ -1466,6 +1798,18 @@ def main() -> int:
         {**b1_entry(":hybrid_rescue_chunk", hyb["b1"]["rescue chunk"],
                     h_launch["window_collide_sorted"] - N_STEPS,
                     hyb["b1"]["one lane per row"]), "path": "hybrid"},
+        # phase 10: the protocol's launches of B1 (main and rescue) and B2
+        # at k = 7 and at k = 0 on the four cameras, held against their
+        # plain versions on the k = 7 spatial state at step 1500
+        {**b2_entry(":protocol", prot["b2"], prot["launches_k7"]["cells_window_lookup"]),
+         "path": "protocol k=7",
+         "launches_k0_cameras": prot["launches_k0"]["cells_window_lookup"]},
+        {**b1_entry(":protocol", prot["b1"]["main"],
+                    prot["launches_k7"]["window_collide_sorted"],
+                    prot["b1"]["one lane per row"]),
+         "rescue_chunk": {**prot["b1"]["rescue chunk"], "library_ms": None},
+         "path": "protocol k=7",
+         "launches_k0_cameras": prot["launches_k0"]["window_collide_sorted"]},
         {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
         *b3[1:],
     ]
