@@ -98,6 +98,18 @@ Phases (each raises on failure; nothing is caught and passed over):
      camera's undecided mask on the k = 7 state (active lanes, and the
      falling sentinels, which must stay out of the hybrid's plan).  The
      launches go into the kernel line as the ":protocol" entries;
+ 11. (after 10; ``drive_headline``) the headline benchmark: ``python -m
+     ….bench.headline`` in its own process at its defaults (DragonScene at
+     1,048,576 particles, 151 steps, the settled probe over 620 + 100
+     steps), its one stdout line checked and printed with the settled
+     ms/step; ``headline()`` again in this process under torch.profiler,
+     launch counters reset just before (B1 and B2 must launch; they go
+     into the kernel line as ``launches_headline``), and from its trace
+     the device's busy and elapsed ms per timed step; the settled probe's
+     state at step 620 (window 2048, a re-sort every 12 steps) held bit
+     for bit against the main path's runner from its state at step 600,
+     and B1 at window 2048 and B2 against their plain versions on it
+     (``settled_probe`` in their entries);
   7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
@@ -1581,6 +1593,185 @@ def drive_protocol(torch, card: str) -> dict:
     return {"launches_k7": launches_a, "launches_k0": launches_b, **numbers}
 
 
+# phase 11: the headline benchmark (bench/headline.py), at its defaults
+HEADLINE_MODULE = "particlesystemhybridcollisiondetection_tpu_torch.bench.headline"
+HEADLINE_TIMEOUT = 600
+HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# the profiler's names of the kernels each wrapper launches once a call
+TRACED_KERNELS = {"window_collide_sorted": "window_collide_kernel",
+                  "cells_window_lookup": "cells_window_lookup_kernel"}
+
+
+def traced_launches(prof) -> dict:
+    """Launches of B1 and B2 in a profiler session, counted by kernel
+    name; {} when the device trace came back empty."""
+    from torch.autograd import DeviceType
+
+    counts = {name: 0 for name in TRACED_KERNELS}
+    seen = False
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        seen = True
+        for name, symbol in TRACED_KERNELS.items():
+            if symbol in e.key:
+                counts[name] += e.count
+    return counts if seen else {}
+
+
+def busy_per_step(prof, steps: int):
+    """The device's busy and elapsed ms per step over an episode's last
+    ``steps`` steps, from the trace: every CUDA event (kernels, copies,
+    sets) that starts after the end of the B1 launch ending the step
+    before them and up to the end of the last B1 launch, summed, and
+    that span.  Steps are told apart by B1's main launch, so it needs one
+    B1 launch a step (the caller checks it); None when the trace holds
+    too few B1 launches (an empty device trace)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    b1 = sorted((e.time_range.end for e in events
+                 if TRACED_KERNELS["window_collide_sorted"] in e.name))
+    if len(b1) <= steps:
+        return None
+    t0, t1 = b1[-steps - 1], b1[-1]
+    busy = sum(e.time_range.end - e.time_range.start for e in events
+               if t0 < e.time_range.start < t1)
+    return busy / 1000.0 / steps, (t1 - t0) / 1000.0 / steps
+
+
+def drive_headline(torch, card: str, runner, snap600) -> dict:
+    """Phase 11: the headline benchmark.
+
+    (a) ``python -m ….bench.headline`` in its own process at its defaults
+    (DragonScene, 1,048,576 particles, 151 steps, the settled probe over
+    620 + 100 steps): exit 0, exactly one stdout line holding exactly the
+    four keys, the metric naming dragon and 1M, a finite value above 0,
+    stderr naming 1048576 particles on cuda and a finite settled ms/step.
+
+    (b) In this process, ``headline()`` on the same scene with the launch
+    counters reset just before, under torch.profiler: B1 and B2 launched
+    (the counters; the profiler's counts by kernel name are printed beside
+    them, "not measured" when its trace is empty); from the same trace the
+    device's busy and elapsed ms per timed step, beside the host's.
+
+    (c) The settled probe's state at step 620 (``settled_state``: window
+    2048, a re-sort every 12 steps) held bit for bit on every lane against
+    the main path's runner (window 1024, resort_every "auto") from its
+    state at step 600; B1 at window 2048 and B2 against their plain
+    versions on that state.
+
+    Returns the launches and the kernel-table numbers of (c)."""
+    import math
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from particlesystemhybridcollisiondetection_tpu_torch.bench import headline as HL
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
+
+    t_phase = time.perf_counter()
+    # ---- 11(a): the command as a user runs it ----
+    torch.cuda.empty_cache()  # the cached blocks of phases 2-10 stay free for it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", HEADLINE_MODULE],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=HEADLINE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-20:]:
+        print(f"  headline stderr: {line}")
+    if proc.returncode:
+        raise RuntimeError(f"the headline exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise RuntimeError(f"the headline printed {len(lines)} stdout lines: {lines}")
+    result = json.loads(lines[-1])
+    if set(result) != HEADLINE_KEYS:
+        raise RuntimeError(f"the headline's keys {sorted(result)}")
+    if "_dragon_" not in result["metric"] or not result["metric"].endswith("_1M"):
+        raise RuntimeError(f"the headline's metric {result['metric']!r}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0):
+        raise RuntimeError(f"the headline's value {result['value']}")
+    ctx = re.search(r"\] (\d+) particles, .* device=(\w+),", proc.stderr)
+    if not ctx or ctx.groups() != ("1048576", "cuda"):
+        raise RuntimeError("the headline's stderr does not say 1048576 "
+                           f"particles on cuda: {ctx and ctx.groups()}")
+    settled = re.search(r"settled-phase: (\S+) ms/step", proc.stderr)
+    settled_ms = float(settled.group(1)) if settled else math.nan
+    if not math.isfinite(settled_ms):
+        raise RuntimeError("the headline's settled ms/step is missing or not finite")
+    print(f"[{card}] headline: {lines[0]}; settled phase {settled_ms} ms/step "
+          f"({wall:.1f} s in its own process)")
+
+    # ---- 11(b): its launches, in this process ----
+    scene = dragon_scene(width=HL.WIDTH, height=HL.HEIGHT)
+    torch.cuda.synchronize()
+    wk.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = HL.headline(scene)
+        torch.cuda.synchronize()
+    launches = dict(wk.LAUNCHES)
+    traced = traced_launches(prof)
+    print(f"[{card}] headline in this process, under the profiler: "
+          f"{res.num_particles} particles, {res.num_steps} timed steps, "
+          f"{res.mean_ms:.3f} ms/step (a reading, not the headline's "
+          f"number); launches {launches}, by the profiler "
+          f"{traced or 'not measured'}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the headline episode's launches {launches}")
+    # how much of a timed step the device works: one B1 launch a step
+    # (free fall, no rescue) marks where each step ends in the trace
+    busy = None
+    if launches["window_collide_sorted"] == launches["cells_window_lookup"]:
+        busy = busy_per_step(prof, res.num_steps)
+    if busy is None:
+        print(f"[{card}] headline device time per step: not measured")
+    else:
+        print(f"[{card}] headline, timed steps by the trace: device busy "
+              f"{busy[0]:.4f} ms/step of {busy[1]:.4f} ms/step elapsed on the "
+              f"device (busy share {busy[0] / busy[1]:.4f}); host "
+              f"{res.mean_ms:.4f} ms/step under the profiler, "
+              f"{HL.HEADLINE_PARTICLES * 1000.0 / result['value']:.4f} ms/step "
+              f"in 11(a) without it")
+
+    # ---- 11(c): the settled probe's state at step 620 against the main path's ----
+    pre = HL.settled_probe.__kwdefaults__["pre_steps"]
+    srun, s_probe = HL.settled_state(scene)
+    if srun.sp.ctab is None:
+        raise RuntimeError("the settled probe's runner built no cells table: "
+                           "B2 is not on its path")
+    s_main = runner(snap600, pre - 600)
+    fence(s_main.pos)
+    differ = ((s_probe.pos != s_main.pos).any(0) | (s_probe.vel != s_main.vel).any(0)
+              | (s_probe.collisions != s_main.collisions))
+    n_differ = int(differ.sum())
+    print(f"[{card}] settled probe's state at step {pre} (window "
+          f"{srun.sp.window}, re-sort every {srun.resort_every}) against the main "
+          f"path's runner (window {runner.sp.window}, resort_every "
+          f"{runner.resort_every!r}): {n_differ} of {differ.numel()} lanes differ "
+          f"in any bit; collisions {int(s_probe.collisions.sum())} vs "
+          f"{int(s_main.collisions.sum())}")
+    if n_differ:
+        raise RuntimeError(f"the settled probe's state at step {pre} differs from "
+                           f"the main path's on {n_differ} lanes")
+    b2_args, cases, overflow = sorted_plan(torch, srun.sp, s_probe)
+    print(f"[{card}] settled probe's state at step {pre}: {int(overflow.sum())} "
+          f"overflow lanes in the main plan (window {srun.sp.window})")
+    numbers = {"b2": b2_case(torch, card, f"settled probe, step {pre}", b2_args),
+               "b1": window_case(torch, card, srun.sp, f"settled probe main, step {pre}",
+                                 *cases["main"])}
+    print(f"[{card}] phase 11 (the headline): {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "traced": traced, "line": result,
+            "settled_ms": settled_ms, **numbers}
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1749,6 +1940,9 @@ def main() -> int:
     # k = 0 on the four cameras ----
     prot = drive_protocol(torch, card)
 
+    # ---- phase 11: the headline benchmark, its own process and this one ----
+    head = drive_headline(torch, card, runner, snap600)
+
     def mesh_launch(key):
         return {w: [r[key] for r in ranks] for w, ranks in mesh_launches.items()}
 
@@ -1776,14 +1970,25 @@ def main() -> int:
                 "replaces": f"{JAX_KERNELS}:192", "launches": n_launch,
                 **numbers, "library_ms": None}
 
+    def headline_keys(key):
+        # phase 11: the headline episode's launches (the counter, and the
+        # profiler's count, null when its trace was empty) and the case at
+        # the settled probe's window on its state at step 620
+        return {"launches_headline": head["launches"][key],
+                "launches_headline_traced": head["traced"].get(key),
+                "settled_probe": {**head["b2" if key == "cells_window_lookup" else "b1"],
+                                  "library_ms": None}}
+
     h_launch = hyb["launches"]
     kernels = [
         {**b2_entry("", b2, launches["cells_window_lookup"]),
          "launches_cli": cli_launches("cells_window_lookup"),
-         "launches_mesh": mesh_launch("cells_window_lookup")},
+         "launches_mesh": mesh_launch("cells_window_lookup"),
+         **headline_keys("cells_window_lookup")},
         {**b1_entry("", b1[("main", SNAP_STEP)], b1_total),
          "launches_cli": cli_launches("window_collide_sorted"),
-         "launches_mesh": mesh_launch("window_collide_sorted")},
+         "launches_mesh": mesh_launch("window_collide_sorted"),
+         **headline_keys("window_collide_sorted")},
         b1_entry(":rescue_chunk", b1[("rescue chunk", SNAP_STEP)], b1_total - N_STEPS,
                  b1[("one lane per row", SNAP_STEP)]),
         b1_entry(":main_step700", b1[("main", N_STEPS)], N_STEPS),
