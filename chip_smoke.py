@@ -14,14 +14,23 @@ Phases (each raises on failure; nothing is caught and passed over):
   2. drive the spatial main path: the persistent sorted episode runner of
      the spatial method on DragonScene at 1,048,576 particles (128^2 x 64
      layers), cells lookup "kernel", resort_every "auto", 700 steps from
-     spawn; check no NaN on active lanes, sentinels intact, collisions > 0
-     and both kernels launched (launch counters reset just before);
+     spawn, its step captured as CUDA graphs and replayed; print host
+     reads per step (steps 1-151, 151-700); check no NaN on active lanes,
+     sentinels intact, collisions > 0, overflow in steps 600-700, and each
+     kernel launched as a runner step launches it (launch counters, which
+     count replays, reset just before); then run the same 700 steps with
+     capture off (``uncaptured``) and hold the final state and the
+     overflow sequence bit for bit against the captured run;
   3. on the states at step 650 and at step 700 (denser), hold each of
      its kernels against its plain PyTorch version at the main path's
-     shapes (cells lookup; window kernel at the main window, on the
-     first phase-1 rescue chunk and on a phase-2 launch of 1024 rows with
-     one lane each), and print how the window kernel's
-     candidates are spread over lanes and rows;
+     shapes (cells lookup; window kernel at the main window and on the
+     rescue's phase-1 launch over the full Morton-compacted order; the
+     worklist entry point on the lanes phase 2 takes, every lane), and
+     the window kernel on a chunk of 8,192 lanes of the phase-1 order,
+     which splits each row over several blocks (``row_split``, as every
+     launch with fewer rows than two per SM: the k = 0 rung, the
+     host-read rescue's chunks); print how the candidates are spread
+     over lanes and rows;
   4. time each (CUDA events around one call, median of 20, and device
      time from torch.profiler) and its plain version, with the bound of
      each case; run steps 600-700 once more with the
@@ -33,11 +42,12 @@ Phases (each raises on failure; nothing is caught and passed over):
      resort_every "auto"; launch counters reset just before), print the
      undecided share, host reads and overflow, and check it as phase 2
      does, with the undecided share at step 700 strictly between 0 and
-     1; run the screen-space method 700 steps at the same width; print
-     the three methods' collisions; hold B1 (masked main plan, first
-     rescue chunk, a phase-2 launch) and B2 against their plain versions on the hybrid
-     state at step 650 and time them; hold 20 runner steps from step 600
-     against 20 steps of make_hybrid_step_sorted;
+     1, and host reads per step beside the spatial runner's; run the
+     screen-space method 700 steps at the same width; print the three
+     methods' collisions; hold B1 (masked main plan, rescue phase 1), the
+     worklist entry point and B2 against their plain versions on the
+     hybrid state at step 650 and time them; hold 20 runner steps from
+     step 600 against 20 steps of make_hybrid_step_sorted;
   6. drive the particle-particle main path (``drive_p2p``): 1,000,000
      particles in the 160 x 80 x 160 gravity box of bench/configs.py
      config 4, 200 steps of make_p2p_step (variant "auto", which must
@@ -58,7 +68,11 @@ Phases (each raises on failure; nothing is caught and passed over):
      199 rows, three accuracy blocks of 1,048,576 rows, summary totals
      equal to the printed results and to the accuracy blocks, B1 and B2
      launched); ``bench --per-step`` of the spatial method, 50 steps (the
-     non-persistent ``make_method_step`` path); ``simulate`` of the
+     non-persistent ``make_method_step`` path, each step launching each
+     kernel once, B1 twice), then that step over 20 steps from spawn and
+     from step 650 with its rescue and with the host-looped one in its
+     place (ms/step and host reads, states equal bit for bit; a
+     reading); ``simulate`` of the
      spatial method, 100 steps, with a checkpoint that must equal a fresh
      run's ``snapshot`` bit for bit; ``p2pbox`` at 1,000,000 particles, 50
      steps (B3 once per step).  Then, on the spatial state at step 650,
@@ -92,8 +106,13 @@ Phases (each raises on failure; nothing is caught and passed over):
      collisions, ms/step by window; through a tap on the harness's runner
      of the spatial episode (``_EpisodeTap``), that episode's last state
      (no NaN, sentinels inert and never a live lane of the plan), its
-     overflow per step, and on its state at step 1500 B1 (main, rescue
-     chunk, one lane per row) and B2 against their plain versions; (b) k = 0, the three
+     overflow per step, its host reads and launches per step over steps
+     1400-2001, and on its state at step 1500 B1 (main, rescue phase 1,
+     the 8,192-lane chunk), the worklist entry point and B2 against their
+     plain versions, and one step of the runner (replayed) against one of
+     the per-step step with the rescue looped on the host
+     (``_chunked_rescue``, a test and smoke helper) in place of its own,
+     every lane; (b) k = 0, the three
      methods on all four cameras, 50 steps: a row for each, and each
      camera's undecided mask on the k = 7 state (active lanes, and the
      falling sentinels, which must stay out of the hybrid's plan).  The
@@ -103,18 +122,22 @@ Phases (each raises on failure; nothing is caught and passed over):
      1,048,576 particles, 151 steps, the settled probe over 620 + 100
      steps), its one stdout line checked and printed with the settled
      ms/step; ``headline()`` again in this process under torch.profiler,
-     launch counters reset just before (B1 and B2 must launch; they go
-     into the kernel line as ``launches_headline``), and from its trace
-     the device's busy and elapsed ms per timed step; the settled probe's
-     state at step 620 (window 2048, a re-sort every 12 steps) held bit
-     for bit against the main path's runner from its state at step 600,
-     and B1 at window 2048 and B2 against their plain versions on it
+     launch counters reset just before (each kernel as a runner step
+     launches it, equal to the profiler's count when its trace is not
+     empty; they go into the kernel line as ``launches_headline``), the
+     runner's host reads per step, and from the trace the device's busy
+     and elapsed ms per timed step; the settled probe's state at step 620
+     (window 2048, a re-sort every 12 steps, no host read) held bit for
+     bit against the main path's runner from its state at step 600, and
+     B1 at window 2048 and B2 against their plain versions on it
      (``settled_probe`` in their entries);
   7. print the kernel table as one JSON line (``ms`` is the events
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
-     the rescue entries count every launch beyond the main one and nest
-     the phase-2 case under "one_lane_per_row";
+     every ``launches`` is a counter's reading: B1's main entry counts its
+     main launches, its phase-1 entry the launches counted apart as the
+     rescue's (``window_collide_sorted_rescue``), and nests the
+     8,192-lane chunk's numbers;
      the explicit-plan entry point of the p2p kernel, which no main path
      launches, is listed under that kernel's entry).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
@@ -131,6 +154,11 @@ import time
 
 N_STEPS = 700
 SNAP_STEP = 650
+# lanes of the window-kernel case on a chunk of the phase-1 order (64
+# rows: split over several blocks a row)
+RESCUE_CHUNK = 8192
+# phase 2's runner calls: step 0, steps 1-151, 151-600, 600-650, 650-700
+PHASE2_CALLS = (1, 150, 449, 50, 50)
 REPS = 20
 PROFILER_TRIES = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -157,6 +185,8 @@ P2P_SMALL_WINDOW = 128  # small enough that lanes overflow their window
 # 1,048,576 particles; depth cut to 200 steps for bench, 50 for --per-step,
 # 100 for simulate) and the oracle steps on the state at step 650
 CLI_LAYERS = 64
+# steps of the per-step step's reading with each rescue (phase 8)
+PER_STEP_READING_STEPS = 20
 CLI_STEPS, CLI_PER_STEP_STEPS, CLI_SIM_STEPS, CLI_P2P_STEPS = 200, 50, 100, 50
 CLI_DENSE_LANES = 65_536  # [N, K] f32 at K = 483 is 2 GB per temporary at 1M
 CLI_BF_LANES = 4_096  # each against all 397,688 triangles
@@ -192,11 +222,14 @@ def median_ms(torch, fn) -> float:
 
 def device_ms(torch, fn):
     """Device time of one call of ``fn``: the summed device time of every
-    CUDA kernel it launches (torch.profiler, mean of REPS calls), without
-    the host's gaps between them.  Returns (ms, {kernel name: ms}).  CUDA
-    events around one call of a wrapper (``median_ms``) also count the
-    host's time between its launches, which is most of the reading once a
-    kernel takes under ~0.1 ms.
+    CUDA kernel it launches (torch.profiler over REPS calls; each
+    wrapper launches each of its kernels once a call, so a kernel's time
+    per call is its mean over the launches the trace holds, which stays
+    right if the trace misses some), without the host's gaps between
+    them.  Returns (ms, {kernel name: ms}, {kernel name: launches in the
+    trace}).  CUDA events around one call of a wrapper (``median_ms``)
+    also count the host's time between its launches, which is most of
+    the reading once a kernel takes under ~0.1 ms.
 
     The profiler's device tracing can come back empty (it depends on CUPTI,
     which a machine may withhold from one session and grant the next).  Then the session is tried again, and after PROFILER_TRIES empty
@@ -212,14 +245,14 @@ def device_ms(torch, fn):
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
-        rows = {e.key: e.self_device_time_total / 1000.0 / REPS
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-        if rows:
-            return sum(rows.values()), rows
+        seen = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if seen:
+            rows = {e.key: e.self_device_time_total / 1000.0 / e.count for e in seen}
+            return sum(rows.values()), rows, {e.key: e.count for e in seen}
     print("  torch.profiler reported no device time in "
           f"{PROFILER_TRIES} sessions: device time not measured", file=sys.stderr)
-    return None, {}
+    return None, {}, {}
 
 
 def ms_text(ms) -> str:
@@ -232,19 +265,34 @@ def timed(torch, fn, plain_fn) -> dict:
     of that call, ``plain_ms`` the events around the plain version."""
     ms = median_ms(torch, fn)
     plain_ms = median_ms(torch, plain_fn)
-    dev_ms, rows = device_ms(torch, fn)
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "by_kernel": rows}
+    dev_ms, rows, counts = device_ms(torch, fn)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "by_kernel": (rows, counts)}
 
 
-def by_kernel(rows: dict) -> str:
-    """'name ms' of the kernels of one call, longest first."""
+def by_kernel(rows_counts) -> str:
+    """'name ms (launches in the trace of REPS calls)' of the kernels of
+    one call, longest first."""
+    rows, counts = rows_counts
+
     def short(key):
         key = key.replace("void ", "").replace("(anonymous namespace)::", "")
         return key.split("(")[0].split("<")[0][-32:]
     if not rows:
         return "no kernel times"
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:4]
-    return ", ".join(f"{short(k)} {v:.4f}" for k, v in top)
+    return ", ".join(f"{short(k)} {v:.4f} ({counts[k]}/{REPS})" for k, v in top)
+
+
+def check_runner_launches(tag: str, launches: dict, steps: int) -> None:
+    """A sorted step's launches over ``steps`` steps: each step launches
+    B2 once (cells lookup "kernel"), B1's main launch once, B1 once in the
+    rescue (phase 1, counted apart) and the worklist entry point once
+    (phase 2)."""
+    want = {"cells_window_lookup": steps, "window_collide_sorted": steps,
+            "window_collide_sorted_rescue": steps, "window_collide_worklist": steps}
+    if launches != want:
+        raise RuntimeError(f"{tag}: launches {launches}, want {want}")
 
 
 def lane_diff(torch, a, b) -> int:
@@ -264,11 +312,15 @@ def span_columns(torch, col0, bound, n_cols: int) -> int:
 
 
 def sorted_plan(torch, sp, state, undecided=None):
-    """Sort and plan a state as the step does: the cells kernel's
-    arguments, the window kernel's at the main window, on the first
-    phase-1 rescue chunk and on a phase-2 launch, and the main plan's
-    overflow mask (sorted order).  ``undecided`` (hybrid): the
-    screen-space stage's mask, which zeroes the other lanes' counts."""
+    """Sort and plan a state as the runner's step does: the cells
+    kernel's arguments, the window kernel's at the main window and on the
+    rescue's phase-1 launch (the full Morton-compacted order) and on its
+    first 8,192 lanes (a launch of 64 rows, which ``row_split`` spreads
+    over several blocks a row), the main plan's overflow mask (sorted
+    order), and the worklist entry point's arguments on the lanes phase 2
+    takes (``_rescue_phase1`` run on the main launch's output, which the
+    arguments end with).  ``undecided`` (hybrid): the screen-space
+    stage's mask, which zeroes the other lanes' counts."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
@@ -291,19 +343,26 @@ def sorted_plan(torch, sp, state, undecided=None):
     active_s = None if undecided is None else undecided[perm]
     rel, count, ws, k_cap, overflow, _ = S._window_plan_coded(
         key_s, sp.ctab, sp.window, nb, active_s=active_s, demote=sp.demote)
-    pick = S._phase1_order(overflow, key_s)[:8192]
-    _, chunk_state, (rel_c, cnt_c, ws_c, kcap_c, _) = S._rescue_chunk(
+    pick = S._phase1_order(overflow, key_s)
+    _, p1_state, (rel_1, cnt_1, ws_1, kcap_1, _) = S._rescue_chunk(
         sorted_state, overflow, pick, sp.tables, sp.meta, cfg, sp.rescue_window)
-    # a phase-2 launch (one lane per row) on the first 1024 of them
-    pick2 = pick[:1024]
-    args2, _ = S._isolated_plan(sorted_state, overflow[pick2], pick2, sp.tables,
-                                sp.meta, cfg, sp.rescue_window)
+    _, chunk_state, (rel_c, cnt_c, ws_c, kcap_c, _) = S._rescue_chunk(
+        sorted_state, overflow, pick[:RESCUE_CHUNK], sp.tables, sp.meta, cfg,
+        sp.rescue_window)
+    main = (*sorted_state, rel, count, ws, k_cap, sp.tables)
+    out = wk.window_collide_sorted(*main, w=sp.window, k_static=sp.meta.max_tris_per_cell,
+                                   gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
+    still = S._rescue_phase1(out, sorted_state, overflow, sp, key_s)
+    start, count_2, fit = S._phase2_plan(sorted_state, sp)
+    lanes, n_lanes = S._worklist(still & fit)
     return ((key_s, lo, hi, sp.ctab),
-            {"main": ((*sorted_state, rel, count, ws, k_cap, sp.tables), sp.window),
+            {"main": (main, sp.window),
+             "rescue phase 1": ((*p1_state, rel_1, cnt_1, ws_1, kcap_1, sp.tables),
+                                sp.rescue_window),
              "rescue chunk": ((*chunk_state, rel_c, cnt_c, ws_c, kcap_c, sp.tables),
-                              sp.rescue_window),
-             "one lane per row": ((*args2, sp.tables), sp.rescue_window)},
-            overflow)
+                              sp.rescue_window)},
+            overflow,
+            (*sorted_state, start, count_2, lanes, n_lanes, sp.tables, *out))
 
 
 def b1_vs_plain(torch, args, w, kw) -> dict:
@@ -403,6 +462,80 @@ def window_case(torch, card: str, sp, tag: str, args, w: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def worklist_vs_plain(torch, sp, wl_args) -> dict:
+    """The worklist entry point against its plain version (each writing
+    into its own copy of the buffers after phase 1): lanes that differ in
+    any bit (every lane: the unlisted ones must stay as they were), the
+    largest difference, and the listed lanes' hits."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    args, outs = wl_args[:9], wl_args[9:]
+    kw = S._rescue_kw(sp)
+    res = []
+    for fn in (wk.window_collide_worklist, wk.window_collide_worklist_plain):
+        o = [x.clone() for x in outs]
+        fn(*args, *o, **kw)
+        res.append(o)
+    torch.cuda.synchronize()
+    (pk, vk, hk), (pp, vp, hp) = res
+    lanes, n_lanes = args[6], args[7]
+    pick = lanes[:int(n_lanes)].long()
+    return {"bits": lane_diff(torch, pk, pp) + lane_diff(torch, vk, vp)
+            + lane_diff(torch, hk, hp),
+            "err": max(float(torch.abs(pk - pp).max()), float(torch.abs(vk - vp).max())),
+            "hits": int(hk[pick].sum())}
+
+
+def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
+    """The worklist entry point (rescue phase 2) on the lanes that phase 2
+    takes in ``wl_args`` (``sorted_plan``'s): candidate spread, agreement
+    with its plain version on every lane (raises on any difference),
+    times and bound.  Returns its kernel-table numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    args, outs = wl_args[:9], wl_args[9:]
+    start, count, lanes, n_lanes, tables = args[4:9]
+    m = int(n_lanes)
+    pick = lanes[:m].long()
+    bound = torch.clamp(count[pick], 0, sp.meta.max_tris_per_cell)
+    n_cand = int(bound.sum())
+    print(f"[{card}] worklist {tag}: {m} listed lanes of {lanes.numel()}; "
+          f"candidates per lane max {int(bound.max()) if m else 0}, mean "
+          f"{float(bound.float().mean()) if m else 0.0:.2f}; total {n_cand}")
+    c = worklist_vs_plain(torch, sp, wl_args)
+    print(f"[{card}] worklist {tag} vs plain: {c['bits']} lanes differ in any bit, "
+          f"max |diff| {c['err']:.3e}, hits {c['hits']}")
+    if c["bits"]:
+        raise RuntimeError(f"the worklist entry point ({tag}) disagrees with its "
+                           "plain version")
+    kw = S._rescue_kw(sp)
+    scratch = [x.clone() for x in outs]
+    t = timed(torch, lambda: wk.window_collide_worklist(*args, *scratch, **kw),
+              lambda: wk.window_collide_worklist_plain(*args, *scratch, **kw))
+    # bound: each listed lane's state, (start, count) and index in, its
+    # outputs out, every distinct candidate row once (36 B), and the
+    # float operations of its candidates
+    n_rows = span_columns(torch, start[pick].long(), bound, tables.pairs.shape[1])
+    n_bytes = m * (12 + 12 + 4 + 4 + 4 + 4 + 4) + 4 + 36 * n_rows + m * (12 + 12 + 4)
+    n_ops = WINDOW_OPS_PER_CANDIDATE * n_cand + WINDOW_OPS_PER_LANE * m
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
+    print(f"[{card}] worklist {tag}: {t['ms']:.4f} ms by events around the call, "
+          f"{ms_text(t['device_ms'])} on the device "
+          f"({by_kernel(t.pop('by_kernel'))}); plain {t['plain_ms']:.4f} ms; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({n_cand} candidates, {n_rows} distinct "
+          f"rows, {n_bytes} B = {bytes_ms:.4f} ms, {n_ops:.3e} ops = {ops_ms:.4f} ms)")
+    return {"max_abs_err": c["err"], **t, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "listed_lanes": m, "candidates": n_cand}
+
+
 def b2_case(torch, card: str, tag: str, b2_args) -> dict:
     """The cells kernel against its plain version (raises on any
     difference), timed, with its bound.  Returns its kernel-table
@@ -437,12 +570,15 @@ def b2_case(torch, card: str, tag: str, b2_args) -> dict:
     return {"max_abs_err": 0.0, **b2, "bound_ms": b2_bound, "bound_by": "bytes"}
 
 
-def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp) -> dict:
+def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
+                 spatial_reads: float) -> dict:
     """Phase 5: the hybrid path at full width on the spatial path's scene
     and spawn, and the screen-space method beside it.  Returns the hybrid
-    path's kernel launches and the kernel-table numbers of B1 and B2 on
-    its state at step 650 (``sp``: the main path's tables and constants,
-    which the hybrid runner's equal)."""
+    path's kernel launches and the kernel-table numbers of B1, B2 and the
+    worklist entry point on its state at step 650 (``sp``: the main
+    path's tables and constants, which the hybrid runner's equal;
+    ``spatial_reads``: the spatial runner's host reads a step, printed
+    beside the hybrid's)."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
@@ -519,18 +655,16 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp) -> dict
           + ", ".join(f"steps {a}-{b} {v:.3f} ms/step" for (a, b), v in ms.items())
           + f"; undecided share (active lanes) "
           + ", ".join(f"step {k} {v:.4f}" for k, v in share.items())
-          + f"; host reads {syncs_per_step:.2f}/step; overflow steps 600-700 min "
+          + f"; host reads {syncs_per_step:.4f}/step (spatial runner "
+          f"{spatial_reads:.4f}); overflow steps 600-700 min "
           f"{ovf[0]} median {ovf[len(ovf) // 2]} max {ovf[-1]}; collisions {coll}; "
           f"launches {launches}")
     if not 0.0 < share[N_STEPS] < 1.0:
         raise RuntimeError(f"undecided share {share[N_STEPS]} at step {N_STEPS} "
                            "is not strictly between 0 and 1")
-    if launches["cells_window_lookup"] <= 0:
-        raise RuntimeError("the cells kernel never launched on the hybrid path")
-    if launches["window_collide_sorted"] <= N_STEPS:
-        raise RuntimeError(
-            f"window kernel launched {launches['window_collide_sorted']} times in "
-            f"{N_STEPS} hybrid steps: the rescue never used it")
+    check_runner_launches("hybrid path", launches, N_STEPS)
+    if not max(ovf) > 0:
+        raise RuntimeError("no lane overflowed in steps 600-700: the rescue never ran")
 
     # ---- the screen-space method at the same width ----
     step = S.make_method_step(scene, "screen_space")
@@ -549,13 +683,15 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp) -> dict
 
     # ---- B1 and B2 against their plain versions on the masked plan ----
     st, und = ss.screen_space_collide(h650, tex, gravity, cfg.dt, hybrid=True)
-    b2_args, cases, overflow = sorted_plan(torch, sp, st, und)
+    b2_args, cases, overflow, wl_args = sorted_plan(torch, sp, st, und)
     print(f"[{card}] hybrid state at step {SNAP_STEP}: undecided "
           f"{int(und.sum())} lanes, {int(overflow.sum())} overflow lanes in the masked main plan; "
           f"the screen-space stage collides "
           f"{int((st.collisions - h650.collisions).sum())} particles in this step")
     numbers = {"b2": b2_case(torch, card, f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
-               "launches": launches}
+               "launches": launches,
+               "worklist": worklist_case(torch, card, sp, f"hybrid, step {SNAP_STEP}",
+                                         wl_args)}
     for tag, (args, w) in cases.items():
         numbers["b1"][tag] = window_case(torch, card, sp, f"hybrid {tag}, step {SNAP_STEP}",
                                          args, w)
@@ -817,6 +953,13 @@ def drive_p2p(torch, card: str) -> list:
     return entries[:1]
 
 
+def per_step_launches_ok(launches: dict) -> bool:
+    """The per-step sorted step (make_method_step) launches each kernel as
+    a runner step does (``check_runner_launches``), over some steps."""
+    steps = launches["cells_window_lookup"]
+    return steps > 0 and set(launches.values()) == {steps}
+
+
 def run_cli(card: str, tag: str, argv: list) -> tuple:
     """One command through the port's ``cli.main`` (default device,
     CUDA), its output echoed; raises on a non-zero return.  Returns
@@ -935,11 +1078,47 @@ def drive_cli(torch, card: str, snap) -> dict:
             "--out", os.path.join(tmp, "per_step")])
         launches["per_step"] = dict(wk.LAUNCHES)
         per_ms = float(re.search(r"([\d.]+) ms/step", text).group(1))
-        if min(launches["per_step"].values()) <= 0:
+        if not per_step_launches_ok(launches["per_step"]):
             raise RuntimeError(f"--per-step launches {launches['per_step']}")
         print(f"[{card}] spatial ms/step: --per-step (make_method_step, a sync per "
               f"step, steps 2-{CLI_PER_STEP_STEPS}) {per_ms:.3f}, persistent runner "
               f"(steps 2-{CLI_STEPS}) {printed['spatial'][0]:.3f}")
+
+        # ---- a reading: the per-step step with its rescue (sized on the
+        # device) and with the host-looped one in its place, which reads
+        # the overflow and skips the rescue when none overflows; 20 steps
+        # in free fall (from spawn) and at impact (from step 650) ----
+        device_rescue = S._device_rescue
+        rescues = {"device-sized": device_rescue,
+                   "host-looped": lambda *a, rescue_compact, **k: S._chunked_rescue(*a, **k)}
+        spawn = spawn_grid(scene.config, CLI_LAYERS)
+        step = S.make_method_step(scene, "spatial")
+        for where, st0 in (("free fall, from spawn", spawn), ("impact, from step 650", snap)):
+            got = {}
+            for tag, rescue in rescues.items():
+                S._device_rescue = rescue
+                try:
+                    x = step(st0)  # the first call: allocations, kernel lookup
+                    fence(x.pos)
+                    reads0 = step.syncs.count
+                    t0 = time.perf_counter()
+                    for _ in range(PER_STEP_READING_STEPS):
+                        x = step(x)
+                    fence(x.pos)
+                    ms = (time.perf_counter() - t0) * 1000.0 / PER_STEP_READING_STEPS
+                finally:
+                    S._device_rescue = device_rescue
+                got[tag] = (x, ms, (step.syncs.count - reads0) / PER_STEP_READING_STEPS)
+            (a, ms_a, reads_a), (b, ms_b, reads_b) = got.values()
+            differ = int(((a.pos != b.pos).any(0) | (a.vel != b.vel).any(0)
+                          | (a.collisions != b.collisions)).sum())
+            print(f"[{card}] per-step step, {where}, {PER_STEP_READING_STEPS} steps: "
+                  f"rescue sized on the device {ms_a:.3f} ms/step ({reads_a:.2f} host "
+                  f"reads/step), host-looped {ms_b:.3f} ms/step ({reads_b:.2f} host "
+                  f"reads/step); {differ} lanes differ in any bit")
+            if differ:
+                raise RuntimeError(f"the per-step step's two rescues disagree ({where})")
+        del spawn, step, a, b, x, got
 
         # ---- 8.3: simulate with a checkpoint (make_episode_runner) ----
         out3 = os.path.join(tmp, "simulate")
@@ -948,7 +1127,7 @@ def drive_cli(torch, card: str, snap) -> dict:
             "simulate", *scene_args, "--method", "spatial",
             "--steps", str(CLI_SIM_STEPS), "--checkpoint", "--out", out3])
         launches["simulate"] = dict(wk.LAUNCHES)
-        if min(launches["simulate"].values()) <= 0:
+        if not per_step_launches_ok(launches["simulate"]):
             raise RuntimeError(f"simulate launches {launches['simulate']}")
         again = S.make_episode_runner(S.make_method_step(scene, "spatial"),
                                       CLI_SIM_STEPS)(spawn_grid(scene.config, CLI_LAYERS))
@@ -1139,7 +1318,7 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     local = dp.shard_state(glob, mesh)
     # the same tables without the mesh: this rank's slice alone, so the
     # mesh's cost is read in turns inside one process
-    alone = S.SortedEpisodeRunner(runner.sp, "auto", 8192, 8192, False)
+    alone = S.SortedEpisodeRunner(runner.sp, "auto", 8192, False)
     # a first pass of each warms this fresh process (allocator, lazily
     # loaded modules) as the main path's 600 steps warmed the
     # single-device runner; the timed passes must repeat it bit for bit
@@ -1170,7 +1349,7 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     # B1 (main window) and B2 on this rank's state at step 650
     kw = dict(k_static=runner.sp.meta.max_tris_per_cell, gravity=cfg.gravity,
               dt=cfg.dt, backoff=cfg.backoff)
-    b2_args, cases, _ = sorted_plan(torch, runner.sp, out)
+    b2_args, cases, _, _ = sorted_plan(torch, runner.sp, out)
     args, w = cases["main"]
     rec = {"rank": rank, "device": str(dp.rank_device(mesh)),
            "backend": dist.get_backend(), "n_local": out.pos.shape[-1],
@@ -1359,17 +1538,26 @@ class _EpisodeTap:
     that would pass ``snap_step`` is split there to keep that state, and
     the last state is kept.  The states are the runner's.  A call from the
     state of the first call restarts the count: the harness warms the
-    runner from the spawn state, then runs the episode from it."""
+    runner from the spawn state, then runs the episode from it.  The
+    host reads and kernel launches so far are kept at the first call's
+    end at or past ``mark_step`` (``mark``) and at the last call's
+    (``end``): (step, reads, launches)."""
 
-    def __init__(self, runner, snap_step: int):
-        self.runner, self.snap_step = runner, snap_step
+    def __init__(self, runner, snap_step: int, mark_step: int):
+        self.runner, self.snap_step, self.mark_step = runner, snap_step, mark_step
         self.sp = runner.sp
         self.spawn = None
+
+    def counters(self):
+        from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+            window_kernel as wk,
+        )
+        return self.done, self.runner.syncs.count, dict(wk.LAUNCHES)
 
     def __call__(self, state, num_steps: int):
         if self.spawn is None or state is self.spawn:
             self.spawn = state
-            self.done, self.overflow, self.snap = 0, [], None
+            self.done, self.overflow, self.snap, self.mark = 0, [], None, None
             self.syncs0 = self.runner.syncs.count
         parts = [num_steps]
         if self.done < self.snap_step < self.done + num_steps:
@@ -1380,6 +1568,9 @@ class _EpisodeTap:
             self.done += n
             if self.done == self.snap_step:
                 self.snap = state
+        if self.mark is None and self.done >= self.mark_step:
+            self.mark = self.counters()
+        self.end = self.counters()
         self.last = state
         return state
 
@@ -1396,9 +1587,12 @@ def drive_protocol(torch, card: str) -> dict:
     The harness's runner of the spatial episode is tapped (``_EpisodeTap``):
     on that episode's last state no NaN on active lanes, the sentinels at
     1e38 with no horizontal velocity and no hit, never a live lane of the
-    plan; its overflow per step; on its state at step 1500, B1 (main
-    window, rescue chunk, one lane per row) and B2 against their plain
-    versions.
+    plan; its overflow per step; its host reads and launches per step
+    over the steps from 1400; on its state at step 1500, B1 (main window,
+    rescue phase 1, the 8,192-lane chunk), the worklist entry point and B2
+    against their plain versions, and one step of the runner (replayed)
+    against one of the per-step step with the rescue looped on the host
+    (``_chunked_rescue``) in place of its own, on every lane.
 
     (b) k = 0, the three methods on all four cameras, one run of 50
     steps: a row for each; each camera's undecided mask on the k = 7 state
@@ -1433,7 +1627,7 @@ def drive_protocol(torch, card: str) -> dict:
     def tapped_runner(triangles, cfg_, **kw):
         runner = make_runner(triangles, cfg_, **kw)
         if kw.get("camera") is None:  # the spatial episode's
-            taps.append(_EpisodeTap(runner, PROTOCOL_SNAP_STEP))
+            taps.append(_EpisodeTap(runner, PROTOCOL_SNAP_STEP, PROTOCOL_WINDOWS[-1][0]))
             return taps[-1]
         return runner
 
@@ -1477,10 +1671,12 @@ def drive_protocol(torch, card: str) -> dict:
               + ", ".join(f"steps {a}-{b} {sum(v[a - 1:b - 1]) / (b - a):.3f}"
                           for a, b in PROTOCOL_WINDOWS)
               + f" ms/step (harness chunks of 50 steps); collisions {r['collisions']}")
-    if launches_a["cells_window_lookup"] < 2 * PROTOCOL_STEPS or \
-            launches_a["window_collide_sorted"] <= 2 * PROTOCOL_STEPS:
+    # two exact methods, each a runner step a step (warm-up included):
+    # each kernel once (``check_runner_launches``)
+    n_b2 = launches_a["cells_window_lookup"]
+    if n_b2 < 2 * PROTOCOL_STEPS or set(launches_a.values()) != {n_b2}:
         raise RuntimeError(f"protocol k={PROTOCOL_K} launches {launches_a}: a kernel "
-                           "of the path never launched, or the rescue never did")
+                           "of the path never launched, or not once a step")
     print(f"[{card}] protocol k={PROTOCOL_K}: {wall_a:.1f} s; launches {launches_a}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1502,6 +1698,11 @@ def drive_protocol(torch, card: str) -> dict:
         and (s.pos[:, pad] == 1e38).all() and (sv[0] == 0).all() and (sv[2] == 0).all()
         and torch.isfinite(sv[1]).all() and (sv[1] == sv[1, 0]).all()
         and (s.collisions[pad] == 0).all())
+    (m_step, m_reads, m_launch), (e_step, e_reads, e_launch) = tap.mark, tap.end
+    late = e_step - m_step
+    print(f"[{card}] protocol k={PROTOCOL_K}, the spatial episode, steps {m_step}-"
+          f"{e_step}: host reads {(e_reads - m_reads) / late:.4f}/step; launches per step "
+          + ", ".join(f"{k} {(e_launch[k] - m_launch[k]) / late:.4f}" for k in e_launch))
     print(f"[{card}] protocol k={PROTOCOL_K}, the spatial episode at step "
           f"{PROTOCOL_STEPS}: overflow per step max {max(ovf)}, median "
           f"{sorted(ovf)[len(ovf) // 2]}, above {S._COMPACT_CAP} on "
@@ -1527,7 +1728,7 @@ def drive_protocol(torch, card: str) -> dict:
         """The sentinel lanes in ``state``'s plan: where they sort, B2's
         count for them, and whether any is a live lane (a candidate count
         or a place in the overflow mask), which raises.  Returns the plan."""
-        b2_args, cases, overflow = sorted_plan(torch, sp, state, undecided)
+        b2_args, cases, overflow, wl_args = sorted_plan(torch, sp, state, undecided)
         pos_s, count_main = cases["main"][0][0], cases["main"][0][5]
         sent_s = pos_s[0] > 5e37
         _, cnt_b2 = wk.cells_window_lookup(*b2_args, wc=S._CODE_WC)
@@ -1540,16 +1741,49 @@ def drive_protocol(torch, card: str) -> dict:
               f"{int(count_main[sent_s].abs().sum())}")
         if int(sent_s.sum()) != n_pad or overflow[sent_s].any() or count_main[sent_s].any():
             raise RuntimeError(f"{tag}: a sentinel lane is a live lane of the plan")
-        return b2_args, cases
+        return b2_args, cases, wl_args
 
-    b2_args, cases = sentinels_in_plan(
+    b2_args, cases, wl_args = sentinels_in_plan(
         f"protocol k={PROTOCOL_K}, state at step {PROTOCOL_SNAP_STEP}", snap)
-    numbers = {"b2": b2_case(torch, card, f"protocol k={PROTOCOL_K}, step "
-                             f"{PROTOCOL_SNAP_STEP}", b2_args), "b1": {}}
+    at = f"protocol k={PROTOCOL_K}, step {PROTOCOL_SNAP_STEP}"
+    numbers = {"b2": b2_case(torch, card, at, b2_args), "b1": {},
+               "worklist": worklist_case(torch, card, sp, at, wl_args)}
     for tag, (args, w) in cases.items():
         numbers["b1"][tag] = window_case(
             torch, card, sp, f"protocol k={PROTOCOL_K} {tag}, step {PROTOCOL_SNAP_STEP}",
             args, w)
+    del b2_args, cases, wl_args
+
+    # ---- one step from the state at step 1500: the runner's captured step
+    # (its rescue sized on the device) against the per-step step with the
+    # rescue looped on the host in its place, every lane ----
+    reads0 = tap.runner.syncs.count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = tap.runner(snap, 1)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    host_step = S._sorted_step(sp, None, False)
+    device_rescue = S._device_rescue
+    S._device_rescue = lambda *a_, rescue_compact, **k: S._chunked_rescue(*a_, **k)
+    try:
+        t0 = time.perf_counter()
+        b = host_step(snap)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+    finally:
+        S._device_rescue = device_rescue
+    differ = int(((a.pos != b.pos).any(0) | (a.vel != b.vel).any(0)
+                  | (a.collisions != b.collisions)).sum())
+    print(f"[{card}] protocol k={PROTOCOL_K}, one step from step {PROTOCOL_SNAP_STEP}: "
+          f"the runner's step (replayed, {tap.runner.syncs.count - reads0} host reads, "
+          f"{t_dev * 1e3:.3f} ms) against the host-looped rescue's "
+          f"({host_step.syncs.count} host reads, {t_host * 1e3:.3f} ms): {differ} of "
+          f"{a.pos.shape[-1]} lanes differ in any bit; hits {int((a.collisions - snap.collisions).sum())}")
+    if differ:
+        raise RuntimeError("the device-sized rescue and the host-read rescue disagree "
+                           f"on {differ} lanes at k={PROTOCOL_K}")
+    del a, b
 
     # ---- 10(b): k = 0, the three methods on the four cameras ----
     wk.reset_launches()
@@ -1597,47 +1831,59 @@ def drive_protocol(torch, card: str) -> dict:
 HEADLINE_MODULE = "particlesystemhybridcollisiondetection_tpu_torch.bench.headline"
 HEADLINE_TIMEOUT = 600
 HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
-# the profiler's names of the kernels each wrapper launches once a call
+# the profiler's names of the kernels each launch count's launches run
+# once a launch (B1's main and rescue counts launch the same kernel)
 TRACED_KERNELS = {"window_collide_sorted": "window_collide_kernel",
-                  "cells_window_lookup": "cells_window_lookup_kernel"}
+                  "window_collide_sorted_rescue": "window_collide_kernel",
+                  "cells_window_lookup": "cells_window_lookup_kernel",
+                  "window_collide_worklist": "worklist_collide_kernel"}
+
+
+def by_symbol(launches: dict) -> dict:
+    """Launch counts summed by the kernel they run (``TRACED_KERNELS``)."""
+    out: dict = {}
+    for name, n in launches.items():
+        out[TRACED_KERNELS[name]] = out.get(TRACED_KERNELS[name], 0) + n
+    return out
 
 
 def traced_launches(prof) -> dict:
-    """Launches of B1 and B2 in a profiler session, counted by kernel
-    name; {} when the device trace came back empty."""
+    """Launches of B1, B2 and the worklist entry point in a profiler
+    session, counted by kernel name (replayed graphs' kernels included);
+    {} when the device trace came back empty."""
     from torch.autograd import DeviceType
 
-    counts = {name: 0 for name in TRACED_KERNELS}
+    counts = {symbol: 0 for symbol in set(TRACED_KERNELS.values())}
     seen = False
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         seen = True
-        for name, symbol in TRACED_KERNELS.items():
+        for symbol in counts:
             if symbol in e.key:
-                counts[name] += e.count
+                counts[symbol] += e.count
     return counts if seen else {}
 
 
 def busy_per_step(prof, steps: int):
     """The device's busy and elapsed ms per step over an episode's last
     ``steps`` steps, from the trace: every CUDA event (kernels, copies,
-    sets) that starts after the end of the B1 launch ending the step
-    before them and up to the end of the last B1 launch, summed, and
-    that span.  Steps are told apart by B1's main launch, so it needs one
-    B1 launch a step (the caller checks it); None when the trace holds
-    too few B1 launches (an empty device trace)."""
+    sets) that starts after the end of the worklist launch (rescue phase
+    2) of the step before them and up to the end of the last one, summed,
+    that span, and the device events a step.  Steps are told apart by
+    that launch, so it needs one a step (the caller checks it); None
+    when the trace holds too few of them (an empty device trace)."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     b1 = sorted((e.time_range.end for e in events
-                 if TRACED_KERNELS["window_collide_sorted"] in e.name))
+                 if TRACED_KERNELS["window_collide_worklist"] in e.name))
     if len(b1) <= steps:
         return None
     t0, t1 = b1[-steps - 1], b1[-1]
-    busy = sum(e.time_range.end - e.time_range.start for e in events
-               if t0 < e.time_range.start < t1)
-    return busy / 1000.0 / steps, (t1 - t0) / 1000.0 / steps
+    inside = [e for e in events if t0 < e.time_range.start < t1]
+    busy = sum(e.time_range.end - e.time_range.start for e in inside)
+    return busy / 1000.0 / steps, (t1 - t0) / 1000.0 / steps, len(inside) / steps
 
 
 def drive_headline(torch, card: str, runner, snap600) -> dict:
@@ -1667,6 +1913,7 @@ def drive_headline(torch, card: str, runner, snap600) -> dict:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from particlesystemhybridcollisiondetection_tpu_torch.bench import harness as H
     from particlesystemhybridcollisiondetection_tpu_torch.bench import headline as HL
     from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
         dragon_scene,
@@ -1712,31 +1959,46 @@ def drive_headline(torch, card: str, runner, snap600) -> dict:
 
     # ---- 11(b): its launches, in this process ----
     scene = dragon_scene(width=HL.WIDTH, height=HL.HEIGHT)
+    made = []
+    make_runner = H.make_sorted_episode_runner  # run_episode's
+
+    def kept_runner(*a, **k):
+        made.append(make_runner(*a, **k))
+        return made[-1]
+
     torch.cuda.synchronize()
     wk.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = HL.headline(scene)
-        torch.cuda.synchronize()
+    H.make_sorted_episode_runner = kept_runner
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = HL.headline(scene)
+            torch.cuda.synchronize()
+    finally:
+        H.make_sorted_episode_runner = make_runner
     launches = dict(wk.LAUNCHES)
     traced = traced_launches(prof)
+    hrun = made[0]
     print(f"[{card}] headline in this process, under the profiler: "
           f"{res.num_particles} particles, {res.num_steps} timed steps, "
           f"{res.mean_ms:.3f} ms/step (a reading, not the headline's "
-          f"number); launches {launches}, by the profiler "
+          f"number); runner captured {hrun.graphed}, host reads "
+          f"{hrun.syncs.count / hrun.steps:.4f}/step over its {hrun.steps} steps; "
+          f"launches {launches} (counters: replays counted), by the profiler "
           f"{traced or 'not measured'}")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"the headline episode's launches {launches}")
-    # how much of a timed step the device works: one B1 launch a step
-    # (free fall, no rescue) marks where each step ends in the trace
-    busy = None
-    if launches["window_collide_sorted"] == launches["cells_window_lookup"]:
-        busy = busy_per_step(prof, res.num_steps)
+    check_runner_launches("the headline episode", launches, hrun.steps)
+    if traced and traced != by_symbol(launches):
+        raise RuntimeError(f"the launch counters {launches} disagree with the "
+                           f"profiler's count {traced}")
+    # how much of a timed step the device works: the worklist launch,
+    # once a step, marks where each step ends in the trace
+    busy = busy_per_step(prof, res.num_steps)
     if busy is None:
         print(f"[{card}] headline device time per step: not measured")
     else:
         print(f"[{card}] headline, timed steps by the trace: device busy "
               f"{busy[0]:.4f} ms/step of {busy[1]:.4f} ms/step elapsed on the "
-              f"device (busy share {busy[0] / busy[1]:.4f}); host "
+              f"device (busy share {busy[0] / busy[1]:.4f}; {busy[2]:.1f} device "
+              f"events a step); host "
               f"{res.mean_ms:.4f} ms/step under the profiler, "
               f"{HL.HEADLINE_PARTICLES * 1000.0 / result['value']:.4f} ms/step "
               f"in 11(a) without it")
@@ -1747,6 +2009,12 @@ def drive_headline(torch, card: str, runner, snap600) -> dict:
     if srun.sp.ctab is None:
         raise RuntimeError("the settled probe's runner built no cells table: "
                            "B2 is not on its path")
+    probe_reads = srun.syncs.count / srun.steps
+    print(f"[{card}] settled probe's runner (re-sort every {srun.resort_every}): host "
+          f"reads {probe_reads:.4f}/step over its {srun.steps} steps")
+    if probe_reads:
+        raise RuntimeError("the settled probe's runner read the host with a fixed "
+                           "resort_every")
     s_main = runner(snap600, pre - 600)
     fence(s_main.pos)
     differ = ((s_probe.pos != s_main.pos).any(0) | (s_probe.vel != s_main.vel).any(0)
@@ -1761,15 +2029,17 @@ def drive_headline(torch, card: str, runner, snap600) -> dict:
     if n_differ:
         raise RuntimeError(f"the settled probe's state at step {pre} differs from "
                            f"the main path's on {n_differ} lanes")
-    b2_args, cases, overflow = sorted_plan(torch, srun.sp, s_probe)
+    b2_args, cases, overflow, _ = sorted_plan(torch, srun.sp, s_probe)
     print(f"[{card}] settled probe's state at step {pre}: {int(overflow.sum())} "
           f"overflow lanes in the main plan (window {srun.sp.window})")
-    numbers = {"b2": b2_case(torch, card, f"settled probe, step {pre}", b2_args),
-               "b1": window_case(torch, card, srun.sp, f"settled probe main, step {pre}",
-                                 *cases["main"])}
+    numbers = {"cells_window_lookup": b2_case(torch, card, f"settled probe, step {pre}",
+                                              b2_args),
+               "window_collide_sorted": window_case(
+                   torch, card, srun.sp, f"settled probe main, step {pre}", *cases["main"])}
     print(f"[{card}] phase 11 (the headline): {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "traced": traced, "line": result,
-            "settled_ms": settled_ms, **numbers}
+            "settled_ms": settled_ms, "reads_per_step": hrun.syncs.count / hrun.steps,
+            "busy": busy, **numbers}
 
 
 def device_line(torch) -> str:
@@ -1812,7 +2082,10 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; conditional graph nodes from "
+          "PyTorch (CUDAGraph.begin_capture_to_if_node): "
+          + ("available" if hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+             else "absent, so the runner holds a graph for each branch"))
     build_s = build.build_all()
     print(f"[{card}] kernel build (nvcc, {len(build.SOURCES)} sources in "
           f"parallel): {build_s:.2f} s")
@@ -1842,29 +2115,36 @@ def main() -> int:
           f"host setup {time.perf_counter() - t0:.1f} s")
 
     wk.reset_launches()
-    syncs0 = runner.syncs.count
-    s = runner(state0, 1)  # step 0 (first launches)
-    fence(s.pos)
-    t0 = time.perf_counter()
-    s = runner(s, 150)
-    fence(s.pos)
-    spawn_ms = (time.perf_counter() - t0) * 1000.0 / 150
-    t0 = time.perf_counter()
-    s = runner(s, 449)
-    fence(s.pos)
-    mid_ms = (time.perf_counter() - t0) * 1000.0 / 449
-    snap600 = s
-    t0 = time.perf_counter()
-    s, ovf_a = runner(s, SNAP_STEP - 600, with_stats=True)
-    fence(s.pos)
-    t_a = time.perf_counter() - t0
-    snap = s
-    t0 = time.perf_counter()
-    s, ovf_b = runner(s, N_STEPS - SNAP_STEP, with_stats=True)
-    fence(s.pos)
-    impact_ms = (t_a + time.perf_counter() - t0) * 1000.0 / (N_STEPS - 600)
+    torch.cuda.reset_peak_memory_stats()
+    ovf_all, reads = [], []
+    s = state0
+    walls = []
+    # the calls (PHASE2_CALLS): step 0 runs eagerly (the first launches),
+    # the runner captures its step at the next one and replays it from then
+    for k in PHASE2_CALLS:
+        r0 = runner.syncs.count
+        t0 = time.perf_counter()
+        s, ovf_k = runner(s, k, with_stats=True)
+        fence(s.pos)
+        walls.append(time.perf_counter() - t0)
+        reads.append(runner.syncs.count - r0)
+        ovf_all += ovf_k
+        if len(walls) == 3:
+            snap600 = s
+        if len(walls) == 4:
+            snap = s
+    spawn_ms = walls[1] * 1000.0 / PHASE2_CALLS[1]
+    mid_ms = walls[2] * 1000.0 / PHASE2_CALLS[2]
+    t_a = walls[3]
+    impact_ms = (walls[3] + walls[4]) * 1000.0 / (N_STEPS - 600)
     launches = dict(wk.LAUNCHES)
-    syncs_per_step = (runner.syncs.count - syncs0) / N_STEPS
+    syncs_per_step = sum(reads) / N_STEPS
+    ovf_a, ovf_b = ovf_all[600:SNAP_STEP], ovf_all[SNAP_STEP:]
+    print(f"[{card}] main path: runner captured {runner.graphed}; host reads per "
+          f"step, steps 1-151 {sum(reads[:2]) / 151:.4f}, steps 151-700 "
+          f"{sum(reads[2:]) / 549:.4f} (the \"auto\" re-sort flag, one a step after "
+          f"each call's first); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     mask = active_mask(s)
     nan_lanes = int((~torch.isfinite(s.pos[:, mask]).all(0)).sum()
@@ -1886,28 +2166,49 @@ def main() -> int:
         raise RuntimeError("padding sentinels moved or collided")
     if total_coll <= 0:
         raise RuntimeError("no collisions in 700 steps")
-    if launches["cells_window_lookup"] <= 0:
-        raise RuntimeError("the cells kernel never launched on the main path")
-    if launches["window_collide_sorted"] <= N_STEPS:
-        raise RuntimeError(
-            f"window kernel launched {launches['window_collide_sorted']} "
-            f"times in {N_STEPS} steps: the rescue never used it")
+    check_runner_launches("main path", launches, N_STEPS)
+    if not max(ovf) > 0:
+        raise RuntimeError("no lane overflowed in steps 600-700: the rescue never ran")
+
+    # ---- the same 700 steps with capture off: the eager run of the code
+    # each captured step holds, equal bit for bit ----
+    eager = S.SortedEpisodeRunner(sp, "auto", runner.resort_threshold, False)
+    e, ovf_e = state0, []
+    t0 = time.perf_counter()
+    with S.uncaptured():
+        for k in PHASE2_CALLS:
+            e, ovf_k = eager(e, k, with_stats=True)
+            ovf_e += ovf_k
+    fence(e.pos)
+    eager_s = time.perf_counter() - t0
+    e_differ = int(((e.pos != s.pos).any(0) | (e.vel != s.vel).any(0)
+                    | (e.collisions != s.collisions)).sum())
+    ovf_differ = sum(a != b for a, b in zip(ovf_e, ovf_all))
+    print(f"[{card}] main path against the same {N_STEPS} steps uncaptured (eager, "
+          f"{eager_s:.1f} s, host reads {eager.syncs.count / N_STEPS:.4f}/step): "
+          f"{e_differ} lanes differ in any bit, overflow differs on {ovf_differ} "
+          f"of {len(ovf_all)} steps")
+    if e_differ or ovf_differ or len(ovf_e) != len(ovf_all):
+        raise RuntimeError("the captured runner and the eager runner disagree")
+    del eager, e
 
     # ---- phases 3 and 4: each kernel against its plain version and timed,
     # on the states at step 650 and at step 700 ----
-    b1 = {}
+    b1, wl = {}, {}
     for at, state in ((SNAP_STEP, snap), (N_STEPS, s)):
-        b2_args, cases, overflow = sorted_plan(torch, sp, state)
+        b2_args, cases, overflow, wl_args = sorted_plan(torch, sp, state)
         print(f"[{card}] state at step {at}: {int(overflow.sum())} overflow lanes in "
               "the main plan")
         if at == SNAP_STEP:
             b2 = b2_case(torch, card, f"spatial, step {at}", b2_args)
         for tag, (args, w) in cases.items():
             b1[(tag, at)] = window_case(torch, card, sp, f"{tag}, step {at}", args, w)
+        wl[at] = worklist_case(torch, card, sp, f"step {at}", wl_args)
+        del b2_args, cases, wl_args
 
     # ---- a reading, no default changed: steps 600-700 once more with the
     # dense-cell demotion off ----
-    nodemote = S.SortedEpisodeRunner(sp._replace(demote=None), "auto", 8192, 8192, False)
+    nodemote = S.SortedEpisodeRunner(sp._replace(demote=None), "auto", 8192, False)
     fence(snap600.pos)
     t0 = time.perf_counter()
     s_nd, ovf_nd = nodemote(snap600, N_STEPS - 600, with_stats=True)
@@ -1923,7 +2224,7 @@ def main() -> int:
           f"{nd_coll} (default {total_coll})")
 
     # ---- phase 5: the hybrid path on the same scene and spawn ----
-    hyb = drive_hybrid(torch, card, scene, state0, total_coll, sp)
+    hyb = drive_hybrid(torch, card, scene, state0, total_coll, sp, syncs_per_step)
 
     # ---- phase 6: the particle-particle path ----
     b3 = drive_p2p(torch, card)
@@ -1950,71 +2251,99 @@ def main() -> int:
         return {sub: counts[key] for sub, counts in cli["launches"].items()
                 if key in counts}
 
-    b1_total = launches["window_collide_sorted"]
+    def b1_entry(suffix, numbers, n_launch):
+        return {"name": "window_collide_sorted" + suffix, "route": "cuda",
+                "source": PORT_CSRC + "window_kernel.cu",
+                "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
+                **numbers, "library_ms": None}
 
-    def b1_entry(suffix, numbers, n_launch, phase2=None):
-        entry = {"name": "window_collide_sorted" + suffix, "route": "cuda",
-                 "source": PORT_CSRC + "window_kernel.cu",
-                 "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
-                 **numbers, "library_ms": None}
-        if phase2 is not None:
-            entry["one_lane_per_row"] = {**phase2, "library_ms": None}
-        return entry
-
-    # every step launches the window kernel once at the main window; the
-    # launches beyond that are the rescue's: phase-1 chunks and phase-2
-    # launches of one lane per row (whose case is nested in the entry)
     def b2_entry(suffix, numbers, n_launch):
         return {"name": "cells_window_lookup" + suffix, "route": "cuda",
                 "source": PORT_CSRC + "cells_kernel.cu",
                 "replaces": f"{JAX_KERNELS}:192", "launches": n_launch,
                 **numbers, "library_ms": None}
 
-    def headline_keys(key):
-        # phase 11: the headline episode's launches (the counter, and the
-        # profiler's count, null when its trace was empty) and the case at
-        # the settled probe's window on its state at step 620
-        return {"launches_headline": head["launches"][key],
-                "launches_headline_traced": head["traced"].get(key),
-                "settled_probe": {**head["b2" if key == "cells_window_lookup" else "b1"],
-                                  "library_ms": None}}
+    def wl_entry(suffix, numbers, n_launch):
+        # B1's second entry point: rescue phase 2 (the TPU kernel's rescue
+        # use; the JAX package takes those lanes by its packed path)
+        return {"name": "window_collide_worklist" + suffix, "route": "cuda",
+                "source": PORT_CSRC + "window_kernel.cu",
+                "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
+                **numbers, "library_ms": None}
 
+    def headline_keys(key):
+        # phase 11: the headline episode's launches (the counter, which
+        # counts graph replays; the profiler's count of the kernel the
+        # counter's launches run, B1's main and rescue launches together,
+        # null when its trace was empty) and the case at the settled
+        # probe's window on its state at step 620
+        keys = {"launches_headline": head["launches"][key],
+                "kernel_launches_headline_traced":
+                    head["traced"].get(TRACED_KERNELS[key])}
+        if key in head:
+            keys["settled_probe"] = {**head[key], "library_ms": None}
+        return keys
+
+    def with_chunk(entry, numbers):
+        # the window kernel on 8,192 lanes of the phase-1 order (split
+        # over several blocks a row), nested in the phase-1 entry
+        return {**entry, "rescue_chunk": {**numbers, "library_ms": None}}
+
+    # every launch count is a counter's reading: B1's main launches count
+    # under "window_collide_sorted", its rescue launches (phase 1) under
+    # "window_collide_sorted_rescue"
+    rescue = "window_collide_sorted_rescue"
     h_launch = hyb["launches"]
+    k7 = prot["launches_k7"]
     kernels = [
         {**b2_entry("", b2, launches["cells_window_lookup"]),
          "launches_cli": cli_launches("cells_window_lookup"),
          "launches_mesh": mesh_launch("cells_window_lookup"),
          **headline_keys("cells_window_lookup")},
-        {**b1_entry("", b1[("main", SNAP_STEP)], b1_total),
+        {**b1_entry("", b1[("main", SNAP_STEP)], launches["window_collide_sorted"]),
          "launches_cli": cli_launches("window_collide_sorted"),
          "launches_mesh": mesh_launch("window_collide_sorted"),
          **headline_keys("window_collide_sorted")},
-        b1_entry(":rescue_chunk", b1[("rescue chunk", SNAP_STEP)], b1_total - N_STEPS,
-                 b1[("one lane per row", SNAP_STEP)]),
-        b1_entry(":main_step700", b1[("main", N_STEPS)], N_STEPS),
-        b1_entry(":rescue_chunk_step700", b1[("rescue chunk", N_STEPS)],
-                 b1_total - N_STEPS, b1[("one lane per row", N_STEPS)]),
-        # the hybrid path's launches of B1 and B2, held against their plain
-        # versions on the hybrid state at step 650 (counts zeroed on lanes
-        # the screen-space stage decided)
+        with_chunk({**b1_entry(":rescue_phase1", b1[("rescue phase 1", SNAP_STEP)],
+                               launches[rescue]),
+                    "launches_cli": cli_launches(rescue),
+                    "launches_mesh": mesh_launch(rescue), **headline_keys(rescue)},
+                   b1[("rescue chunk", SNAP_STEP)]),
+        {**wl_entry("", wl[SNAP_STEP], launches["window_collide_worklist"]),
+         "launches_cli": cli_launches("window_collide_worklist"),
+         "launches_mesh": mesh_launch("window_collide_worklist"),
+         **headline_keys("window_collide_worklist")},
+        b1_entry(":main_step700", b1[("main", N_STEPS)], launches["window_collide_sorted"]),
+        with_chunk(b1_entry(":rescue_phase1_step700", b1[("rescue phase 1", N_STEPS)],
+                            launches[rescue]), b1[("rescue chunk", N_STEPS)]),
+        wl_entry(":step700", wl[N_STEPS], launches["window_collide_worklist"]),
+        # the hybrid path's launches, held against their plain versions on
+        # the hybrid state at step 650 (counts zeroed on lanes the
+        # screen-space stage decided)
         {**b2_entry(":hybrid", hyb["b2"], h_launch["cells_window_lookup"]),
          "path": "hybrid"},
-        {**b1_entry(":hybrid", hyb["b1"]["main"], N_STEPS), "path": "hybrid"},
-        {**b1_entry(":hybrid_rescue_chunk", hyb["b1"]["rescue chunk"],
-                    h_launch["window_collide_sorted"] - N_STEPS,
-                    hyb["b1"]["one lane per row"]), "path": "hybrid"},
-        # phase 10: the protocol's launches of B1 (main and rescue) and B2
-        # at k = 7 and at k = 0 on the four cameras, held against their
-        # plain versions on the k = 7 spatial state at step 1500
-        {**b2_entry(":protocol", prot["b2"], prot["launches_k7"]["cells_window_lookup"]),
+        {**b1_entry(":hybrid", hyb["b1"]["main"], h_launch["window_collide_sorted"]),
+         "path": "hybrid"},
+        {**with_chunk(b1_entry(":hybrid_rescue_phase1", hyb["b1"]["rescue phase 1"],
+                               h_launch[rescue]), hyb["b1"]["rescue chunk"]),
+         "path": "hybrid"},
+        {**wl_entry(":hybrid", hyb["worklist"], h_launch["window_collide_worklist"]),
+         "path": "hybrid"},
+        # phase 10: the protocol's launches at k = 7 and at k = 0 on the
+        # four cameras, held against their plain versions on the k = 7
+        # spatial state at step 1500
+        {**b2_entry(":protocol", prot["b2"], k7["cells_window_lookup"]),
          "path": "protocol k=7",
          "launches_k0_cameras": prot["launches_k0"]["cells_window_lookup"]},
-        {**b1_entry(":protocol", prot["b1"]["main"],
-                    prot["launches_k7"]["window_collide_sorted"],
-                    prot["b1"]["one lane per row"]),
-         "rescue_chunk": {**prot["b1"]["rescue chunk"], "library_ms": None},
+        {**b1_entry(":protocol", prot["b1"]["main"], k7["window_collide_sorted"]),
          "path": "protocol k=7",
          "launches_k0_cameras": prot["launches_k0"]["window_collide_sorted"]},
+        {**with_chunk(b1_entry(":protocol_rescue_phase1", prot["b1"]["rescue phase 1"],
+                               k7[rescue]), prot["b1"]["rescue chunk"]),
+         "path": "protocol k=7", "launches_k0_cameras": prot["launches_k0"][rescue]},
+        {**wl_entry(":protocol", prot["worklist"], k7["window_collide_worklist"]),
+         "path": "protocol k=7",
+         "launches_k0_cameras": prot["launches_k0"]["window_collide_worklist"]},
         {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
         *b3[1:],
     ]

@@ -18,18 +18,30 @@ travel-segment midpoint; look up each particle's ``(start, count)`` (the
 cells kernel, or a gather from ``cells2``); plan one candidate window per
 row of 128 sorted particles; run the window kernel (exact narrow phase,
 response and integration, fused); redo the lanes whose candidates did
-not fit their window exactly, in up to three phases (``_chunked_rescue``).  The
+not fit their window exactly, in up to three phases (``_device_rescue``).  The
 response runs before integration and pre-compensates it with ``-g*dt``,
 as in the reference's frame loop (ParticleSys.cs:445-527).
 
 The JAX package decides its data-dependent branches on the device
-(``lax.cond``/``while_loop``).  Eager PyTorch reads those scalars back to
-the host (``.item()``); the branch sequence is the JAX package's, and
-every read is counted in ``HostSyncs``.
+(``lax.cond``/``while_loop``) inside one compiled program per step.  The
+sorted steps do the same: their rescue (``_device_rescue``) sizes its
+work on the device, one launch a phase, and on CUDA the sorted episode
+runner replays each step as a captured CUDA graph (this card's
+counterpart of a ``jax.jit`` program).  The host still reads, and
+``HostSyncs`` counts: under ``resort_every="auto"`` the runner's
+re-sort flag (one byte a step: a graph cannot choose its branch without
+the conditional nodes that this PyTorch does not expose, so the runner
+holds a graph for each branch and the host picks); the packed rescue
+phase on scenes whose densest cell outgrows the rescue window (decided
+when the tables are built; such a runner steps eagerly); the per-step
+step's overflow under ``with_stats``; with ``mesh=``, the overflow that
+the ranks sum each step.  ``_chunked_rescue``, the rescue looped on the
+host, is kept as the reference the tests and the smoke hold it to.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import warnings
 from typing import NamedTuple, Optional
@@ -55,12 +67,16 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     BLOCK,
     LANE,
+    LAUNCHES,
     SUB,
     _CODE_TABLE_MAX,
     build_code_table,
     build_window_tables,
     cells_window_lookup,
+    isolated_rows,
+    plan_tail,
     window_collide_sorted,
+    window_collide_worklist,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
     _morton_spread,
@@ -83,9 +99,13 @@ from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_paral
 
 
 class HostSyncs:
-    """Counts the device scalars read back to the host (each read waits
-    for the device): the eager form of the JAX package's on-device
-    branches."""
+    """Counts the device scalars read back to the host to decide a branch
+    (each read waits for the device): the host's form of the JAX
+    package's on-device branches.  Those that remain are the runner's
+    "auto" re-sort flag, the packed rescue phase where a scene needs it,
+    the per-step step's ``with_stats`` overflow and the sum over a mesh
+    (module docstring).  A runner's ``with_stats`` list, read once after
+    a call's last step, is the caller's read and not counted."""
 
     def __init__(self):
         self.count = 0
@@ -441,38 +461,8 @@ def _window_plan(cid_s, cells2, window: int, nb: int, active_s=None,
     return _plan_tail(info[0], count, window, nb, demote=demote)
 
 
-def _plan_tail(start, count, window: int, nb: int, miss=None, demote=None):
-    """Window geometry: each row of 128 sorted particles gets its own
-    window of ``window`` pair rows starting at its smallest candidate
-    start (rounded down to 128).  Returns (rel, count, ws i32[nb, 8],
-    k_cap i32[nb], overflow bool[N], ovf_count): each particle's start
-    relative to its row's window, the per-block candidate bound, the
-    lanes whose candidates do not fit (redone by the rescue), and the
-    pre-zeroing counts (the phase-3 compaction order)."""
-    big = 1 << 30
-    sb = torch.where(count > 0, start, big).reshape(nb * SUB, LANE)
-    ws = sb.min(dim=1).values
-    ws = torch.where(ws == big, 0, ws)
-    ws = (ws // 128) * 128
-    rel = start - ws.repeat_interleave(LANE)
-    rel = torch.where(count > 0, rel, 0)
-    overflow = (count > 0) & ((rel < 0) | (rel + count > window))
-    if miss is not None:
-        overflow = overflow | miss
-    if demote is not None:
-        # dense-cell demotion: in the main kernel one dense cell would
-        # inflate its whole block's trip count; the rescue packs such
-        # lanes into their own blocks
-        overflow = overflow | (count > demote)
-    # overflow lanes are redone by the rescue, so the main kernel skips
-    # them (zeroed counts tighten k_cap); ws stays anchored to the
-    # pre-zeroing counts so the other lanes' rel values are unchanged
-    ovf_count = count
-    count = torch.where(overflow, 0, count)
-    k_cap = count.reshape(nb, BLOCK).max(dim=1).values
-    rel = torch.where(count > 0, rel, 0)
-    rel = torch.clamp(rel, 0, window - 1)
-    return rel, count, ws.reshape(nb, SUB), k_cap, overflow, ovf_count
+# the window geometry lives beside the window kernel (plan_tail)
+_plan_tail = plan_tail
 
 
 _CODE_WC = 512  # per-row code-window size
@@ -525,32 +515,21 @@ def _maybe_code_table(grid, meta, cells_lookup: str):
     return build_code_table(grid, meta, _CODE_WC) if use else None
 
 
-# Bounded-compaction buffer for the phase-1 rescue order
-# (_chunked_rescue(rescue_compact=True)); read at call time
+# Bounded-compaction buffer for the phase-1 rescue order of the
+# runner's rescue (``rescue_compact=True``); read at call time
 _COMPACT_CAP = 65536
+# the count (``LAUNCHES``) of the window kernel's launches in the rescue
+_RESCUE_LAUNCHES = "window_collide_sorted_rescue"
 
 
-def _chunked_rescue(
-    kernel_out,
-    sorted_state,
-    overflow,
-    tables,
-    packed,
-    meta,
-    num_groups: int,
-    group: int,
-    gravity,
-    cfg: SimConfig,
-    m_cap: int,
-    *,
-    rescue_window: int,
-    key_s,
-    ovf_count,
-    syncs: HostSyncs,
-    kernel_chunk: int = 8192,
-    rescue_compact: bool = False,
-):
-    """Exact redo of the window-overflow lanes, in two phases.
+def _chunked_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
+                    syncs: HostSyncs, kernel_chunk: int = 8192):
+    """Exact redo of the window-overflow lanes, in up to three phases,
+    looped and skipped on the host, as the JAX package's ``_chunked_rescue``
+    loops them on the device.  Test and smoke helper, on no entry point's
+    path: the reference that ``_device_rescue`` (the steps' rescue) is
+    held to bit for bit.  It takes ``_device_rescue``'s arguments, so a
+    test can put it in that one's place.
 
     Phase 1 (window kernel, ``kernel_chunk``-lane chunks): compact the
     overflow lanes in CURRENT Morton-key order (``key_s``; pair rows are
@@ -567,31 +546,26 @@ def _chunked_rescue(
     kernel's own arithmetic: the result does not depend on the sort
     order that sent the lane to the rescue.
 
-    Phase 3 (packed path, ``m_cap``-lane chunks): lanes whose cell
-    outgrows the rescue window (cells above 1920 candidates), densest
-    first.
+    Phase 3 (``_packed_rescue``): lanes whose cell outgrows the rescue
+    window (cells above 1920 candidates), densest first.
 
     Exact for any overflow count.  Chunk starts clamp to ``n - m`` like
     ``lax.dynamic_slice``: the last chunk may overlap the one before and
     recomputes those lanes from the same inputs.  Returns (pos_k, vel_k,
-    hit_k, n_over), n_over a host int.
+    hit_k, n_over), n_over an i32 device scalar.
     """
     pos_k, vel_k, hit_k = kernel_out
-    pos_s, vel_s, radius_s, restit_s = sorted_state
-    n = pos_s.shape[-1]
-    dev = pos_s.device
-    n_over = syncs.read(overflow.sum())
+    tables, meta, cfg, rescue_window = sp.tables, sp.meta, sp.cfg, sp.rescue_window
+    n = sorted_state[0].shape[-1]
+    n_over_d = overflow.sum(dtype=torch.int32)
+    n_over = syncs.read(n_over_d)
     if n_over == 0:
-        return pos_k, vel_k, hit_k, 0
-    big = 1 << 30
+        return pos_k, vel_k, hit_k, n_over_d
     still = overflow.clone()
 
     # ---- phase 1: Morton-compacted kernel rescue ----
     m1 = max(BLOCK, (min(kernel_chunk, n) // BLOCK) * BLOCK)
-    if rescue_compact and n >= 2 * _COMPACT_CAP and n_over <= _COMPACT_CAP:
-        ord1 = _compact_order(overflow, key_s, n_over, _COMPACT_CAP)
-    else:
-        ord1 = _phase1_order(overflow, key_s)
+    ord1 = _phase1_order(overflow, key_s)
     c = 0
     while c * m1 < n_over:
         s0 = min(c * m1, n - m1)
@@ -605,9 +579,7 @@ def _chunked_rescue(
         if syncs.read(n_unfit * 2 < n_redo):
             pos_o, vel_o, hit_o = window_collide_sorted(
                 pos_c, vel_c, rad_c, res_c, rel, cnt, ws, k_cap, tables,
-                w=rescue_window, k_static=meta.max_tris_per_cell,
-                gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
-            )
+                launch_key=_RESCUE_LAUNCHES, **_rescue_kw(sp))
             decided = redo & ~unfit
             pos_k[:, pick] = torch.where(decided[None], pos_o, pos_k[:, pick])
             vel_k[:, pick] = torch.where(decided[None], vel_o, vel_k[:, pick])
@@ -621,8 +593,8 @@ def _chunked_rescue(
     # ---- phase 2: window kernel, one lane per row ----
     n_still = syncs.read(still.sum())
     if n_still == 0:
-        return pos_k, vel_k, hit_k, n_over
-    m2 = min(max(SUB, (min(m_cap, n) // SUB) * SUB), -(-n_still // SUB) * SUB)
+        return pos_k, vel_k, hit_k, n_over_d
+    m2 = min(max(SUB, (min(sp.m_cap, n) // SUB) * SUB), -(-n_still // SUB) * SUB)
     ord2 = torch.argsort((~still).to(torch.uint8), stable=True)  # still first
     c = 0
     while c * m2 < n_still:
@@ -632,9 +604,7 @@ def _chunked_rescue(
         args, fit = _isolated_plan(sorted_state, redo, pick, tables, meta, cfg,
                                    rescue_window)
         pos_o, vel_o, hit_o = window_collide_sorted(
-            *args, tables, w=rescue_window, k_static=meta.max_tris_per_cell,
-            gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
-        )
+            *args, tables, launch_key=_RESCUE_LAUNCHES, **_rescue_kw(sp))
         take = redo & fit
         pos_k[:, pick] = torch.where(take[None], pos_o[:, ::LANE], pos_k[:, pick])
         vel_k[:, pick] = torch.where(take[None], vel_o[:, ::LANE], vel_k[:, pick])
@@ -642,12 +612,26 @@ def _chunked_rescue(
         still[pick] = redo & ~fit
         c += 1
 
-    # ---- phase 3: packed path on lanes whose cell outgrows the window ----
+    _packed_rescue(pos_k, vel_k, hit_k, still, sorted_state, ovf_count, sp.packed,
+                   meta, sp.num_groups, sp.group, sp.gravity, cfg, sp.m_cap,
+                   syncs=syncs)
+    return pos_k, vel_k, hit_k, n_over_d
+
+
+def _packed_rescue(pos_k, vel_k, hit_k, still, sorted_state, ovf_count, packed,
+                   meta, num_groups: int, group: int, gravity, cfg: SimConfig,
+                   m_cap: int, *, syncs: HostSyncs) -> None:
+    """Rescue phase 3, in place: the packed path on the ``still`` lanes
+    (their cells outgrow the rescue window), densest first, in
+    ``m_cap``-lane chunks looped on the host (a read of the count, and
+    one of each chunk's group bound)."""
     n_still = syncs.read(still.sum())
     if n_still == 0:
-        return pos_k, vel_k, hit_k, n_over
+        return
+    pos_s, vel_s, radius_s, restit_s = sorted_state
+    n = pos_s.shape[-1]
     m2 = max(BLOCK, (min(m_cap, n) // BLOCK) * BLOCK)
-    ord2 = torch.argsort(torch.where(still, -ovf_count, big), stable=True)
+    ord2 = torch.argsort(torch.where(still, -ovf_count, 1 << 30), stable=True)
     c = 0
     while c * m2 < n_still:
         s0 = min(c * m2, n - m2)
@@ -660,7 +644,7 @@ def _chunked_rescue(
         mini = ParticleState(
             pos=torch.where(redo[None], pos_c, 1.0e38),
             vel=vel_c,
-            collisions=torch.zeros((m2,), dtype=torch.int32, device=dev),
+            collisions=torch.zeros((m2,), dtype=torch.int32, device=pos_s.device),
             radius=radius_s[pick],
             restitution=restit_s[pick],
         )
@@ -673,7 +657,114 @@ def _chunked_rescue(
         vel_k[:, pick] = torch.where(redo[None], fb_vel, vel_k[:, pick])
         hit_k[pick] = torch.where(redo, mini.collisions, hit_k[pick])
         c += 1
+
+
+def _phase3_possible(sp) -> bool:
+    """Whether a lane can outgrow the rescue window alone in its row (its
+    start % 128 + count above it): only on scenes with a cell above
+    ``rescue_window`` - 127 candidates.  Known when the tables are built."""
+    return sp.meta.max_tris_per_cell > sp.rescue_window - (LANE - 1)
+
+
+def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
+                   syncs: HostSyncs, rescue_compact: bool = False):
+    """The sorted steps' rescue: the exact redo of the window-overflow
+    lanes with its work sized on the device -- no host read, no Python
+    branch on a device value -- so a step can be captured and replayed.
+    Gives ``_chunked_rescue``'s bits: a lane's result does not depend on its
+    route through the window kernel (tests/test_torch_step.py::
+    test_rescue_routes_agree).
+
+    Phase 1 (one window-kernel launch at ``rescue_window``): every lane in
+    the phase-1 order (overflow lanes by current Morton key, then the
+    others, which carry no candidates and return at once), or with
+    ``rescue_compact`` and N >= 2 * ``_COMPACT_CAP`` the first
+    ``_COMPACT_CAP`` overflow lanes of that order without its full-N
+    argsort (``_compact_order``; any later ones wait for phase 2).  The
+    JAX package's chunk loop is one launch here, and its per-chunk
+    majority gate is dropped: a lane its window does not fit goes to
+    phase 2 whatever its chunk's majority.  Free fall pays the argsort and
+    the launch at full extent (nothing overflows, nothing is decided).
+
+    Phase 2 (one launch of ``window_collide_worklist``): the lanes still
+    undecided whose cell fits a row's window alone (start % 128 + count
+    <= ``rescue_window``), compacted on the device.
+
+    Phase 3 (``_packed_rescue``, host reads): the rest, on scenes where a
+    cell holds more than ``rescue_window`` - 127 candidates
+    (``_phase3_possible``); elsewhere the step holds no phase-3 code.
+
+    Returns (pos_k, vel_k, hit_k, n_over), n_over an i32 device scalar."""
+    pos_k, vel_k, hit_k = kernel_out
+    n_over = overflow.sum(dtype=torch.int32)
+    still = _rescue_phase1(kernel_out, sorted_state, overflow, sp, key_s,
+                           rescue_compact)
+    # ---- phase 2: each remaining lane alone, one launch ----
+    start, count, fit = _phase2_plan(sorted_state, sp)
+    lanes, n_lanes = _worklist(still & fit)
+    window_collide_worklist(*sorted_state, start, count, lanes, n_lanes, sp.tables,
+                            pos_k, vel_k, hit_k, **_rescue_kw(sp))
+    if _phase3_possible(sp):
+        _packed_rescue(pos_k, vel_k, hit_k, still & ~fit, sorted_state, ovf_count,
+                       sp.packed, sp.meta, sp.num_groups, sp.group, sp.gravity,
+                       sp.cfg, sp.m_cap, syncs=syncs)
     return pos_k, vel_k, hit_k, n_over
+
+
+def _rescue_kw(sp) -> dict:
+    """The window kernel's constants at the rescue window."""
+    cfg = sp.cfg
+    return dict(w=sp.rescue_window, k_static=sp.meta.max_tris_per_cell,
+                gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
+
+
+def _rescue_phase1(kernel_out, sorted_state, overflow, sp, key_s,
+                   rescue_compact: bool = False):
+    """Rescue phase 1 of ``_device_rescue``, in place on ``kernel_out``:
+    one window-kernel launch at the rescue window over the phase-1 order.
+    Returns the overflow lanes it left undecided, bool[N]."""
+    pos_k, vel_k, hit_k = kernel_out
+    n = overflow.shape[0]
+    if rescue_compact and n >= 2 * _COMPACT_CAP:
+        ord1, taken = _compact_order(overflow, key_s, _COMPACT_CAP)
+    else:
+        ord1, taken = _phase1_order(overflow, key_s), overflow
+    redo, lanes1, (rel, cnt, ws, k_cap, unfit) = _rescue_chunk(
+        sorted_state, taken, ord1, sp.tables, sp.meta, sp.cfg, sp.rescue_window)
+    pos_o, vel_o, hit_o = window_collide_sorted(
+        *lanes1, rel, cnt, ws, k_cap, sp.tables, launch_key=_RESCUE_LAUNCHES,
+        **_rescue_kw(sp))
+    decided = redo & ~unfit
+    pos_k[:, ord1] = torch.where(decided[None], pos_o, pos_k[:, ord1])
+    vel_k[:, ord1] = torch.where(decided[None], vel_o, vel_k[:, ord1])
+    hit_k[ord1] = torch.where(decided, hit_o, hit_k[ord1])
+    done = torch.zeros_like(overflow)
+    done[ord1] = decided
+    return overflow & ~done
+
+
+def _phase2_plan(sorted_state, sp):
+    """Rescue phase 2's inputs for every sorted lane: (start, count) from
+    ``cells2`` (midpoint lookup, as phase 1's) and whether the lane fits
+    a row's rescue window alone (``isolated_rows``' rule)."""
+    pos_s, vel_s = sorted_state[:2]
+    info = sp.tables.cells2[:, cell_index(lookup_pos(pos_s, vel_s, sp.cfg.dt),
+                                          sp.meta)]
+    start, count = info[0], info[1]
+    fit = (count <= 0) | (start % LANE + count <= sp.rescue_window)
+    return start, count, fit
+
+
+def _worklist(take):
+    """The lanes where ``take`` holds, in lane order, compacted on the
+    device (cumsum and scatter, no host read): (lanes i32[N], their
+    count i32[]); entries past the count are 0."""
+    n = take.shape[0]
+    t = take.to(torch.int32)
+    slot = torch.where(take, torch.cumsum(t, 0) - 1, n).long()
+    lanes = torch.zeros((n + 1,), dtype=torch.int32, device=take.device)
+    lanes.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=take.device))
+    return lanes[:n], t.sum(dtype=torch.int32)
 
 
 def _phase1_order(overflow, key_s):
@@ -684,7 +775,7 @@ def _phase1_order(overflow, key_s):
 
 def _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
                   rescue_window: int):
-    """Inputs of one phase-1 rescue chunk (lanes ``pick`` of the sorted
+    """Inputs of one phase-1 rescue launch (lanes ``pick`` of the sorted
     state): (redo mask, chunk state, window plan with ``unfit``)."""
     pos_s, vel_s, radius_s, restit_s = sorted_state
     redo = overflow[pick]
@@ -702,51 +793,47 @@ def _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
 
 def _isolated_plan(sorted_state, redo, pick, tables, meta, cfg,
                    rescue_window: int):
-    """Inputs of one phase-2 launch of the window kernel: lanes ``pick``
-    of the sorted state, each alone in a row of LANE (its copies in the
-    row carry count 0), so a lane fits whenever its cell holds at most
-    ``rescue_window`` - 127 candidates.  Returns (the kernel's lane and
-    plan arguments, fit bool[len(pick)]); lane i is row i's first."""
+    """Inputs of one phase-2 launch of the window kernel in the host-read
+    rescue: lanes ``pick`` of the sorted state, each alone in a row of
+    LANE (``isolated_rows``), so a lane fits whenever its cell holds at
+    most ``rescue_window`` - 127 candidates.  Returns (the kernel's lane
+    and plan arguments, fit bool[len(pick)]); lane i is row i's first."""
     pos_s, vel_s, radius_s, restit_s = sorted_state
     pos_c, vel_c = pos_s[:, pick], vel_s[:, pick]
     info = tables.cells2[:, cell_index(lookup_pos(pos_c, vel_c, cfg.dt), meta)]
-    m = pick.shape[0]
-    first = torch.arange(m * LANE, device=pos_s.device) % LANE == 0
-    count = torch.where(first, torch.where(redo, info[1], 0).repeat_interleave(LANE), 0)
-    rel, cnt, ws, k_cap, unfit, _ = _plan_tail(
-        info[0].repeat_interleave(LANE), count, rescue_window, m // SUB)
-    lanes = (pos_c.repeat_interleave(LANE, dim=1), vel_c.repeat_interleave(LANE, dim=1),
-             radius_s[pick].repeat_interleave(LANE),
-             restit_s[pick].repeat_interleave(LANE))
-    return (*lanes, rel, cnt, ws, k_cap), ~unfit[::LANE]
+    return isolated_rows(pos_c, vel_c, radius_s[pick], restit_s[pick], info[0],
+                         torch.where(redo, info[1], 0), rescue_window)
 
 
-def _compact_order(overflow, key_s, n_over: int, cap: int):
-    """The phase-1 order without a full-N argsort: the overflow lanes (at
-    most ``cap``) sorted by current Morton key, ties by lane (identical
-    to the argsort restricted to overflow lanes), followed by
-    non-overflow lanes whose chunk writes are no-ops."""
+def _compact_order(overflow, key_s, cap: int):
+    """The phase-1 launch's lanes without a full-N argsort: the first
+    ``cap`` overflow lanes (lane order) sorted by current Morton key,
+    ties by lane, then the other lanes in lane order, ``cap`` rounded up
+    to whole blocks in all -- the argsort's first lanes when at most
+    ``cap`` lanes overflow.  Returns (order i64[m], the overflow lanes it
+    takes bool[N]); any later overflow lanes take phase 2."""
     n = overflow.shape[0]
     dev = overflow.device
+    m = -(-cap // BLOCK) * BLOCK
     lanes = torch.arange(n, dtype=torch.int32, device=dev)
-    ovf_i = overflow.to(torch.int32)
-    rank = torch.cumsum(ovf_i, 0) - 1
-    sel = overflow & (rank < cap)
-    keys_c = torch.full((cap,), 1 << 30, dtype=key_s.dtype, device=dev)
-    keys_c[rank[sel].long()] = key_s[sel]
-    idx_c = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    idx_c[rank[sel].long()] = lanes[sel]
-    _, o = torch.sort(keys_c, stable=True)
-    ord_c = idx_c[o]
-    rank_n = torch.cumsum(1 - ovf_i, 0) - 1
-    sel_n = (~overflow) & (rank_n < cap)
-    pad_c = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    pad_c[rank_n[sel_n].long()] = lanes[sel_n]
-    pos_in = torch.arange(n, device=dev)
-    tail = pad_c[torch.clamp(pos_in - n_over, min=0) % cap]
-    return torch.where(
-        pos_in < n_over, ord_c[torch.clamp(pos_in, max=cap - 1)], tail
-    ).long()
+    rank = torch.cumsum(overflow.to(torch.int32), 0) - 1
+    taken = overflow & (rank < cap)
+    slot = torch.where(taken, rank, cap).long()  # slot cap: dropped
+    keys_c = torch.full((cap + 1,), 1 << 30, dtype=key_s.dtype, device=dev)
+    keys_c.scatter_(0, slot, key_s)
+    idx_c = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+    idx_c.scatter_(0, slot, lanes)
+    _, o = torch.sort(keys_c[:cap], stable=True)
+    head = idx_c[:cap][o]
+    rank_o = torch.cumsum((~taken).to(torch.int32), 0) - 1
+    slot_o = torch.where(taken, m, torch.clamp(rank_o, max=m)).long()
+    other = torch.zeros((m + 1,), dtype=torch.int32, device=dev)
+    other.scatter_(0, slot_o, lanes)
+    n_taken = taken.sum()
+    pos_in = torch.arange(m, device=dev)
+    order = torch.where(pos_in < n_taken, head[torch.clamp(pos_in, max=cap - 1)],
+                        other[torch.clamp(pos_in - n_taken, min=0)])
+    return order.long(), taken
 
 
 def check_speed_cover(cfg: SimConfig, num_steps: int | None = None,
@@ -850,14 +937,13 @@ def _build_sorted(triangles, cfg, *, window, fallback_capacity, cells_lookup,
 
 
 def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
-                    syncs: HostSyncs, *, active_s=None, rescue_chunk: int = 8192,
-                    rescue_compact: bool = False):
+                    syncs: HostSyncs, *, active_s=None, rescue_compact: bool = False):
     """Plan + window kernel + rescue on particles in (approximately)
     sorted order; ``key_s`` is their current Morton key.  ``active_s``
     (hybrid: the undecided mask in the same order) zeroes the candidate
     counts of the other lanes, so they neither collide nor overflow into
-    the rescue; every lane is integrated.  Returns (pos', vel', hit
-    i32[N], n_over) in the same order."""
+    the rescue (``_device_rescue``); every lane is integrated.  Returns
+    (pos', vel', hit i32[N], n_over i32[]) in the same order."""
     cfg = sp.cfg
     n = pos_s.shape[-1]
     if n % BLOCK:
@@ -879,13 +965,10 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
         w=sp.window, k_static=sp.meta.max_tris_per_cell,
         gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
     )
-    return _chunked_rescue(
-        kernel_out, (pos_s, vel_s, radius_s, restit_s), overflow, sp.tables,
-        sp.packed, sp.meta, sp.num_groups, sp.group, sp.gravity, cfg,
-        sp.m_cap, rescue_window=sp.rescue_window,
-        key_s=key_s, ovf_count=ovf_count, syncs=syncs,
-        kernel_chunk=rescue_chunk, rescue_compact=rescue_compact,
-    )
+    sorted_state = (pos_s, vel_s, radius_s, restit_s)
+    return _device_rescue(kernel_out, sorted_state, overflow, sp, key_s=key_s,
+                          ovf_count=ovf_count, syncs=syncs,
+                          rescue_compact=rescue_compact)
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -1003,6 +1086,7 @@ def _sorted_step(sp: _Sorted, tex, with_stats: bool, mesh=None):
         )
         if not with_stats:
             return out
+        n_over = syncs.read(n_over)
         if mesh is not None:
             n_over = dp.sum_ints(n_over, mesh)
         return out, {"window_overflow": n_over}
@@ -1011,18 +1095,61 @@ def _sorted_step(sp: _Sorted, tex, with_stats: bool, mesh=None):
     return step
 
 
+# step capture on CUDA; off only inside ``uncaptured()``
+_CAPTURE = True
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Test and smoke helper: inside it, sorted runners step eagerly on
+    CUDA (no graph is captured or replayed), running the code a captured
+    step holds, so the two can be held against each other."""
+    global _CAPTURE
+    was, _CAPTURE = _CAPTURE, False
+    try:
+        yield
+    finally:
+        _CAPTURE = was
+
+
+class _Carry(NamedTuple):
+    """A runner's carried buffers for one particle count, updated in
+    place by every step: the addresses a captured step reads and
+    writes."""
+
+    rows8: torch.Tensor  # f32[8, N]: pos3 vel3 radius restitution
+    aux: torch.Tensor  # i32[2, N]: collisions, original ids
+    key: torch.Tensor  # i32[N]: the Morton key of the current order
+    act: Optional[torch.Tensor]  # bool[N]: undecided (hybrid)
+    n_over: torch.Tensor  # i32[]: this step's window overflow
+    base: torch.Tensor  # i32[]: the overflow right after the last sort
+    resort: torch.Tensor  # bool[]: "auto" re-sorts at the next step
+
+
 class SortedEpisodeRunner:
     """Episode runner with PERSISTENT sorted order (see
     make_sorted_episode_runner).  ``runner(state, num_steps)`` returns
     the state in the original particle order; ``syncs.count`` and
-    ``steps`` count host reads and steps over all calls.  With a ``mesh``
-    the runner takes and returns this rank's slice, and its overflows are
-    summed over the mesh: at every step under ``resort_every="auto"``,
-    which decides each re-sort from the sum, else once per call and only
-    for ``with_stats``."""
+    ``steps`` count host reads and steps over all calls.
+
+    On CUDA (one device, ``graphed``) a step is two captured CUDA graphs,
+    one with the re-sort and one without, replayed once a step: the
+    first step for a particle count runs eagerly, the next captures both
+    (they share one memory pool).  ``launches`` holds each graph's
+    kernel launches, which every replay adds to ``LAUNCHES``.  A fixed
+    ``resort_every`` chooses the graph on the host (no read); "auto"
+    reads the flag that the step computes on the device (the JAX
+    package's ``_trigger_update``), one read a step.  Eager steps run the
+    same code, reading that flag the same way.
+
+    Steps are eager with a ``mesh`` (the overflow is summed over it every
+    step under "auto", which decides each re-sort from the sum, else
+    once per call and only for ``with_stats``), and on scenes whose
+    densest cell outgrows the rescue window (``phase3``: the packed
+    rescue phase reads its counts on the host).  A failed capture raises."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
-                 rescue_chunk: int, rescue_compact: bool, tex=None, mesh=None):
+                 rescue_compact: bool, tex=None, mesh=None):
         if resort_every != "auto" and (
                 not isinstance(resort_every, int) or resort_every < 1):
             raise ValueError(f"resort_every must be a positive int or "
@@ -1030,17 +1157,26 @@ class SortedEpisodeRunner:
         self.sp = sp
         self.resort_every = resort_every
         self.resort_threshold = resort_threshold
-        self.rescue_chunk = rescue_chunk
         self.rescue_compact = rescue_compact
         self.tex = tex
         self.mesh = mesh
         self.syncs = HostSyncs()
         self.steps = 0
+        #: the packed rescue phase can run (decided here, from the tables)
+        self.phase3 = _phase3_possible(sp)
+        #: steps are captured and replayed (CUDA, no mesh, no phase 3)
+        self.graphed = (sp.gravity.device.type == "cuda" and mesh is None
+                        and not self.phase3)
+        #: kernel launches per replay, by wrapper, once captured
+        self.launches: dict = {}
+        self._carry: dict = {}  # N -> _Carry
+        self._graphs: dict = {}  # N -> {re-sort: CUDAGraph}
+        self._warm: set = set()  # N whose first step ran (eagerly)
 
     def _collide(self, rows8, key_s, active_s):
         return _collide_sorted(
             self.sp, rows8[0:3], rows8[3:6], rows8[6], rows8[7], key_s,
-            self.syncs, active_s=active_s, rescue_chunk=self.rescue_chunk,
+            self.syncs, active_s=active_s,
             rescue_compact=self.rescue_compact,
         )
 
@@ -1054,80 +1190,139 @@ class SortedEpisodeRunner:
         rows8 = torch.cat([st.pos, st.vel, rows8[6:8]], dim=0)
         return rows8, torch.stack([st.collisions, aux[1]]), undecided
 
-    def _step(self, rows8, aux, do_sort: bool):
-        """One step on the carried rows; with ``do_sort`` re-sort first,
-        else keep the current (drifted) order -- sortedness is a locality
-        hint, the rescue redoes whatever no longer fits its window.  In
-        hybrid mode the screen-space stage runs first and its undecided
-        mask follows the rows through the sort."""
-        active_s = None
+    def _carry_for(self, n: int, dev) -> _Carry:
+        b = self._carry.get(n)
+        if b is None:
+            i32 = dict(dtype=torch.int32, device=dev)
+            b = _Carry(
+                rows8=torch.empty((8, n), dtype=torch.float32, device=dev),
+                aux=torch.empty((2, n), **i32), key=torch.empty((n,), **i32),
+                act=None if self.tex is None else torch.empty(
+                    (n,), dtype=torch.bool, device=dev),
+                n_over=torch.zeros((), **i32), base=torch.zeros((), **i32),
+                resort=torch.zeros((), dtype=torch.bool, device=dev))
+            self._carry[n] = b
+        return b
+
+    def _step(self, b: _Carry, do_sort: bool):
+        """One step in place on the carried buffers; with ``do_sort``
+        re-sort first, else keep the current (drifted) order --
+        sortedness is a locality hint, the rescue redoes whatever no
+        longer fits its window.  In hybrid mode the screen-space stage
+        runs first and its undecided mask follows the rows through the
+        sort.  Without a mesh, "auto" then sets ``b.resort`` on the
+        device from this step's overflow."""
+        rows8, aux = b.rows8, b.aux
         if self.tex is not None:
-            rows8, aux, active_s = self._ss_stage(rows8, aux)
+            r8, ax, und = self._ss_stage(rows8, aux)
+            rows8.copy_(r8)
+            aux.copy_(ax)
+            b.act.copy_(und)
         dt = self.sp.cfg.dt
-        key = morton_key(lookup_pos(rows8[0:3], rows8[3:6], dt), self.sp.meta)
+        b.key.copy_(morton_key(lookup_pos(rows8[0:3], rows8[3:6], dt), self.sp.meta))
         if do_sort:
-            key, perm = torch.sort(key, stable=True)
-            rows8 = rows8[:, perm]
-            if active_s is None:
-                aux = aux[:, perm]
-            else:
-                # the mask rides the aux permute as a third row
-                aux3 = torch.cat([aux, active_s[None].to(torch.int32)])[:, perm]
-                aux, active_s = aux3[0:2], aux3[2] > 0
-        pos_k, vel_k, hit_k, n_over = self._collide(rows8, key, active_s)
-        out8 = torch.cat([pos_k, vel_k, rows8[6:8]], dim=0)
-        out_aux = torch.stack([aux[0] + hit_k, aux[1]])
-        return out8, out_aux, n_over
+            key_s, perm = torch.sort(b.key, stable=True)
+            b.key.copy_(key_s)
+            rows8.copy_(rows8[:, perm])
+            aux.copy_(aux[:, perm])
+            if b.act is not None:
+                b.act.copy_(b.act[perm])
+        pos_k, vel_k, hit_k, n_over = self._collide(rows8, b.key, b.act)
+        rows8[0:3].copy_(pos_k)
+        rows8[3:6].copy_(vel_k)
+        aux[0].add_(hit_k)
+        b.n_over.copy_(n_over)
+        if self.resort_every == "auto" and self.mesh is None:
+            # the trigger (the JAX package's _trigger_update): base is the
+            # overflow right after the most recent sort
+            if do_sort:
+                b.base.copy_(n_over)
+            b.resort.copy_(n_over > b.base + self.resort_threshold)
+
+    def _capture(self, n: int, b: _Carry) -> dict:
+        """Capture the step with and without the re-sort (one memory
+        pool).  Their kernel launches, which must be the same, go to
+        ``self.launches`` and back out of ``LAUNCHES``: a capture
+        launches nothing."""
+        graphs, made, pool = {}, [], None
+        for do_sort in (True, False):
+            before = dict(LAUNCHES)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool):
+                self._step(b, do_sort)
+            pool = g.pool()
+            graphs[do_sort] = g
+            made.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            for k, v in made[-1].items():
+                LAUNCHES[k] -= v
+        if made[0] != made[1]:
+            raise RuntimeError(f"the captured steps launch different kernels: "
+                               f"{made}")
+        self.launches = made[0]
+        self._graphs[n] = graphs
+        return graphs
 
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
         """``with_stats=True``: also return the per-step window-overflow
-        counts (host ints)."""
+        counts (host ints, read once after the last step)."""
         n = state.pos.shape[-1]
-        if state.pos.device != self.sp.gravity.device:
-            raise ValueError(f"state is on {state.pos.device}, the runner's "
+        dev = state.pos.device
+        if dev != self.sp.gravity.device:
+            raise ValueError(f"state is on {dev}, the runner's "
                              f"tables on {self.sp.gravity.device}")
         if n % BLOCK:
             raise ValueError(f"N={n} is not a multiple of {BLOCK}")
         if os.environ.get("PSYS_SPEED_GUARD", "0") not in ("", "0"):
             check_speed_cover(self.sp.cfg, num_steps=num_steps, state=state,
                               strict=True)
-        # carried: rows8 f32[8, N] = pos3 vel3 radius restitution;
-        # aux i32[2, N] = (collisions, original ids)
-        rows8 = torch.cat([state.pos, state.vel, state.radius[None],
-                           state.restitution[None]], dim=0)
-        aux = torch.stack([
-            state.collisions,
-            torch.arange(n, dtype=torch.int32, device=state.pos.device),
-        ])
-        overflows = []
-        # "auto": re-sort when overflow exceeds the overflow measured
-        # right after the most recent sort by resort_threshold (step 0
-        # establishes the order).  With a mesh the overflow is summed
-        # first, so every rank takes the same branch at every step; the
-        # sum is the loop's only collective and every rank reaches it
-        # each step
+        b = self._carry_for(n, dev)
+        b.rows8.copy_(torch.cat([state.pos, state.vel, state.radius[None],
+                                 state.restitution[None]], dim=0))
+        b.aux[0].copy_(state.collisions)
+        b.aux[1].copy_(torch.arange(n, dtype=torch.int32, device=dev))
+        graphed = self.graphed and _CAPTURE
         auto = self.resort_every == "auto"
+        overflows = []
+        # "auto": step 0 establishes the order; later steps re-sort when
+        # the overflow exceeds the overflow measured right after the most
+        # recent sort by resort_threshold.  With a mesh the overflow is
+        # summed first, so every rank takes the same branch at every step;
+        # the sum is the loop's only collective and every rank reaches it
         do_sort, base = True, 0
         for i in range(num_steps):
-            if not auto:
+            if i and not auto:
                 do_sort = i % self.resort_every == 0
-            rows8, aux, n_over = self._step(rows8, aux, do_sort)
-            if auto:
-                if self.mesh is not None:
-                    n_over = dp.sum_ints(n_over, self.mesh)
+            elif i and self.mesh is None:
+                do_sort = bool(self.syncs.read(b.resort))
+            graphs = self._graphs.get(n) if graphed else None
+            if graphs is None and graphed and n in self._warm:
+                graphs = self._capture(n, b)
+            if graphs is None:
+                self._step(b, do_sort)
+                self._warm.add(n)
+            else:
+                graphs[do_sort].replay()
+                for k, v in self.launches.items():
+                    LAUNCHES[k] += v
+            if self.mesh is not None and auto:
+                n_over = dp.sum_ints(self.syncs.read(b.n_over), self.mesh)
                 base = n_over if do_sort else base
                 do_sort = n_over > base + self.resort_threshold
-            overflows.append(n_over)
+                overflows.append(n_over)
+            elif with_stats:
+                overflows.append(b.n_over.clone())
+        if overflows and not isinstance(overflows[0], int):
+            overflows = torch.stack(overflows).tolist()
         if with_stats and not auto and self.mesh is not None:
             overflows = dp.sum_int_list(overflows, self.mesh)
         self.steps += num_steps
         # restore the original order once
-        ids = aux[1].long()
-        out8 = torch.empty_like(rows8)
-        out_aux = torch.empty_like(aux)
-        out8[:, ids] = rows8
-        out_aux[:, ids] = aux
+        ids = b.aux[1].long()
+        out8 = torch.empty_like(b.rows8)
+        out_aux = torch.empty_like(b.aux)
+        out8[:, ids] = b.rows8
+        out_aux[:, ids] = b.aux
         out = state._replace(pos=out8[0:3], vel=out8[3:6], collisions=out_aux[0])
         return (out, overflows) if with_stats else out
 
@@ -1144,7 +1339,6 @@ def make_sorted_episode_runner(
     mesh=None,
     cells_lookup: str = "auto",
     dense_demote: "int | None | str" = "auto",
-    rescue_chunk: int = 8192,
     resort_threshold: int = 8192,
     rescue_compact: bool = False,
     device="cuda",
@@ -1157,9 +1351,10 @@ def make_sorted_episode_runner(
     ``resort_every=k``: re-sort every k-th step (the rescue keeps steps
     in between exact).  ``"auto"``: re-sort when the previous step's
     overflow exceeds the overflow measured right after the most recent
-    sort by ``resort_threshold``.  ``rescue_chunk``: phase-1 rescue
-    chunk (lanes).  ``rescue_compact``: build the phase-1 order by
-    bounded compaction instead of a full-N argsort (identical order).
+    sort by ``resort_threshold``.  ``rescue_compact``: build the phase-1
+    rescue order by bounded compaction instead of a full-N argsort (the
+    same results; ``_device_rescue``).  On CUDA each step is replayed
+    from a captured CUDA graph (``SortedEpisodeRunner``).
 
     ``camera`` (with ``normals``, the per-corner shading normals of the
     pre-pass): each step runs the HYBRID method -- the screen-space stage
@@ -1185,7 +1380,7 @@ def make_sorted_episode_runner(
     if camera is not None:
         tex = bake_camera(triangles, camera, normals, device=sp.gravity.device)
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
-                               rescue_chunk, rescue_compact, tex=tex, mesh=mesh)
+                               rescue_compact, tex=tex, mesh=mesh)
 
 
 def make_method_step(scene, method, camera_index: int = 0,

@@ -2,8 +2,14 @@
 //
 // Replaces the TPU kernel _kernel of the JAX package
 // (particlesystemhybridcollisiondetection_tpu/ops/pallas/window_kernel.py,
-// launched by window_collide_sorted), both as the main pass of every
-// sorted step and as the phase-1 rescue kernel.
+// launched by window_collide_sorted), as the main pass of every sorted
+// step, as the phase-1 rescue kernel and, through a second entry point
+// (psys_window_collide_worklist, at the end), as rescue phase 2: a list of
+// lanes compacted on the device, each alone, with no window.  What bounds
+// that entry point is the bytes of its lanes' candidate rows (36 B each)
+// and the lane state; one warp per lane walks the lane's candidates, so a
+// dense cell (up to the rescue window's 1921 candidates) costs its warp
+// 60 passes, not a block.
 //
 // Per particle, in sorted order: the exact swept-sphere test against its
 // candidates k < count, read from rows ws + rel + k of the planar
@@ -424,6 +430,72 @@ __global__ void __launch_bounds__(LANE) finish_kernel(
   respond_store(l, found, v0, v1, v2, st, pos_out, vel_out, hit_out, n, i);
 }
 
+// Rescue phase 2 (the worklist entry point): each listed lane alone, one
+// warp per lane, grid-stride over the list, whose length is read from
+// device memory (the host never learns it).  The lane's candidates are
+// rows start + k, k < count, of the pair table, read straight from it:
+// a lane alone in its row needs no window.  The arithmetic is the row
+// kernel's -- load_lane, eval_candidate, the 64-bit (bits(t2) << 32) | k
+// nearest-hit key (here a warp shuffle minimum instead of a shared-memory
+// atomic; the minimum is the same) and respond_store -- so a listed lane
+// gets the bits that the row kernel gives it alone in a row of 128
+// (window_collide_worklist_plain holds that on the CPU).
+constexpr int WL_THREADS = 256;
+
+__global__ void __launch_bounds__(WL_THREADS) worklist_collide_kernel(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ radius, const float* __restrict__ restit,
+    const int32_t* __restrict__ start, const int32_t* __restrict__ count,
+    const int32_t* __restrict__ lanes, const int32_t* __restrict__ n_lanes,
+    const float* __restrict__ pairs, int64_t p_pad, float* __restrict__ pos_out,
+    float* __restrict__ vel_out, int32_t* __restrict__ hit_out, int64_t n,
+    int32_t k_static, Step st) {
+  const float INF = __int_as_float(0x7f800000);
+  const int wl = threadIdx.x & 31;
+  const int warps_per_block = blockDim.x >> 5;
+  const int32_t m = *n_lanes;
+  const int32_t stride = (int32_t)gridDim.x * warps_per_block;
+  for (int32_t j = (int32_t)blockIdx.x * warps_per_block + (threadIdx.x >> 5); j < m;
+       j += stride) {
+    const int64_t i = lanes[j];
+    const Lane l = load_lane(pos, vel, radius, restit, n, i, st.dt2);
+    const float* row = pairs + start[i];
+    const int32_t bound = max(0, min(count[i], k_static));
+    unsigned long long best = NO_HIT;
+    for (int32_t k = wl; k < bound; k += 32) {
+      const float* r = row + k;
+      const V3 v0 = {r[0], r[p_pad], r[2 * p_pad]};
+      const V3 v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
+      const V3 v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
+      float c_t2, c_t;
+      bool c_hit;
+      V3 nr;
+      eval_candidate(l.p, l.d, l.r, v0, v1, v2, c_t2, c_t, c_hit, nr);
+      // span check (compute:226-231); a hit with t2 == INF never wins
+      if (c_hit && (c_t2 <= l.seg2) && (c_t2 < INF)) {
+        const unsigned long long key =
+            ((unsigned long long)__float_as_uint(c_t2) << 32) | (uint32_t)k;
+        if (key < best) best = key;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, o);
+      if (other < best) best = other;
+    }
+    if (wl == 0) {
+      const bool found = best != NO_HIT;
+      V3 v0 = {0.f, 0.f, 0.f}, v1 = v0, v2 = v0;
+      if (found) {
+        const float* r = row + (int32_t)(uint32_t)best;
+        v0 = {r[0], r[p_pad], r[2 * p_pad]};
+        v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
+        v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
+      }
+      respond_store(l, found, v0, v1, v2, st, pos_out, vel_out, hit_out, n, i);
+    }
+  }
+}
+
 // A block may use 48 KB of shared memory, static and dynamic together,
 // unless more is allowed for its kernel; the kernels here hold under 8 KB
 // of static shared memory.
@@ -477,5 +549,24 @@ extern "C" int psys_window_collide(
   finish_kernel<<<(unsigned)rows, LANE, 0, s>>>(pos, vel, radius, restit, rel, ws, pairs,
                                                p_pad, keys, pos_out, vel_out, hit_out,
                                                n, st);
+  return (int)cudaGetLastError();
+}
+
+// Rescue phase 2: lanes[0 .. *n_lanes) (sorted-lane indices; *n_lanes in
+// device memory) each alone, over `blocks` blocks of 256 threads, one
+// warp per listed lane.  start/count: each lane's rows in the pair table.
+// Writes pos_out/vel_out/hit_out at the listed lanes only.  Returns the
+// launch's CUDA error, 0 if none.
+extern "C" int psys_window_collide_worklist(
+    const float* pos, const float* vel, const float* radius, const float* restit,
+    const int32_t* start, const int32_t* count, const int32_t* lanes,
+    const int32_t* n_lanes, const float* pairs, int64_t p_pad, float* pos_out,
+    float* vel_out, int32_t* hit_out, int64_t n, int32_t k_static, float gx, float gy,
+    float gz, float dt, float dt2, float backoff, int32_t blocks, void* stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const Step st = {gx, gy, gz, dt, dt2, backoff};
+  worklist_collide_kernel<<<(unsigned)blocks, WL_THREADS, 0, (cudaStream_t)stream>>>(
+      pos, vel, radius, restit, start, count, lanes, n_lanes, pairs, p_pad, pos_out,
+      vel_out, hit_out, n, k_static, st);
   return (int)cudaGetLastError();
 }

@@ -8,12 +8,15 @@ kernels, now hand-written CUDA (``csrc/``):
     sorted particle's ``(start, count)`` from the Morton-code table;
   * ``window_collide_sorted`` (kernel B1, ``csrc/window_kernel.cu``): the
     exact narrow phase over each particle's candidate rows, the response
-    and the integrator, fused.
+    and the integrator, fused;
+  * ``window_collide_worklist``: a second entry point of B1 for rescue
+    phase 2, over a list of lanes compacted on the device, each alone.
 
 Each wrapper has its plain PyTorch version beside it (``*_plain``).  A
 wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (on the current stream) or raises.  Each
-launch adds one to ``LAUNCHES[<wrapper name>]``.
+launch adds one to ``LAUNCHES[<wrapper name>]`` (the window kernel's
+rescue launches to ``LAUNCHES["window_collide_sorted_rescue"]``).
 
 The window kernel spreads a row's candidates over the threads of its
 block and reduces the nearest hit with a 64-bit minimum over the packed
@@ -50,7 +53,8 @@ _INF = float("inf")
 _K_SLAB = 16
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"cells_window_lookup": 0, "window_collide_sorted": 0}
+LAUNCHES = {"cells_window_lookup": 0, "window_collide_sorted": 0,
+            "window_collide_sorted_rescue": 0, "window_collide_worklist": 0}
 
 # The window kernel stages [9][w] floats of pair rows in shared memory
 # (an SM has 227 KB for a block); above this window it cannot launch
@@ -60,6 +64,9 @@ MAX_WINDOW = 4096
 _ROW_THREADS = 256
 # most blocks per row that a launch with few rows is split into
 _MAX_SPLIT = 16
+# blocks per SM of the worklist entry point (256 threads: 8 listed lanes
+# at a time); the grid does not depend on the list's length
+_WORKLIST_BLOCKS_PER_SM = 2
 
 
 def reset_launches() -> None:
@@ -184,6 +191,58 @@ def _stream(device) -> ctypes.c_void_p:
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def plan_tail(start, count, window: int, nb: int, miss=None, demote=None):
+    """Window geometry: each row of 128 sorted particles gets its own
+    window of ``window`` pair rows starting at its smallest candidate
+    start (rounded down to 128).  Returns (rel, count, ws i32[nb, 8],
+    k_cap i32[nb], overflow bool[N], ovf_count): each particle's start
+    relative to its row's window, the per-block candidate bound, the
+    lanes whose candidates do not fit (redone by the rescue), and the
+    pre-zeroing counts (the phase-3 compaction order)."""
+    big = 1 << 30
+    sb = torch.where(count > 0, start, big).reshape(nb * SUB, LANE)
+    ws = sb.min(dim=1).values
+    ws = torch.where(ws == big, 0, ws)
+    ws = (ws // 128) * 128
+    rel = start - ws[:, None].expand(-1, LANE).reshape(-1)
+    rel = torch.where(count > 0, rel, 0)
+    overflow = (count > 0) & ((rel < 0) | (rel + count > window))
+    if miss is not None:
+        overflow = overflow | miss
+    if demote is not None:
+        # dense-cell demotion: in the main kernel one dense cell would
+        # inflate its whole block's trip count; the rescue packs such
+        # lanes into their own blocks
+        overflow = overflow | (count > demote)
+    # overflow lanes are redone by the rescue, so the main kernel skips
+    # them (zeroed counts tighten k_cap); ws stays anchored to the
+    # pre-zeroing counts so the other lanes' rel values are unchanged
+    ovf_count = count
+    count = torch.where(overflow, 0, count)
+    k_cap = count.reshape(nb, BLOCK).max(dim=1).values
+    rel = torch.where(count > 0, rel, 0)
+    rel = torch.clamp(rel, 0, window - 1)
+    return rel, count, ws.reshape(nb, SUB), k_cap, overflow, ovf_count
+
+
+def isolated_rows(pos_c, vel_c, radius_c, restit_c, start_c, count_c,
+                  window: int):
+    """``m`` lanes (m % 8 == 0), each alone in a row of LANE: the lane in
+    the row's first slot, copies with count 0 in the others.  Returns the
+    window kernel's lane and plan arguments for them (pos, vel, radius,
+    restitution, rel, count, ws, k_cap) and fit bool[m]: alone, a lane
+    fits its row's window when start % 128 + count <= ``window``."""
+    m = pos_c.shape[-1]
+    first = torch.arange(m * LANE, device=pos_c.device) % LANE == 0
+    count = torch.where(first, count_c.repeat_interleave(LANE), 0)
+    rel, cnt, ws, k_cap, unfit, _ = plan_tail(
+        start_c.repeat_interleave(LANE), count, window, m // SUB)
+    lanes = (pos_c.repeat_interleave(LANE, dim=1),
+             vel_c.repeat_interleave(LANE, dim=1),
+             radius_c.repeat_interleave(LANE), restit_c.repeat_interleave(LANE))
+    return (*lanes, rel, cnt, ws, k_cap), ~unfit[::LANE]
 
 
 # ---------------------------------------------------------------- B2 ----
@@ -444,9 +503,12 @@ def window_collide_sorted(
     gravity: tuple,
     dt: float,
     backoff: float,
+    launch_key: str = "window_collide_sorted",
 ):
     """Narrow phase + response + integration for every sorted particle.
-    Returns (pos', vel', hit i32[N]) in the sorted order."""
+    Returns (pos', vel', hit i32[N]) in the sorted order.  A launch counts
+    under ``LAUNCHES[launch_key]``: the rescue's launches count under
+    "window_collide_sorted_rescue", apart from the main one."""
     n = pos_s.shape[-1]
     if n % BLOCK:
         raise ValueError(f"particle count {n} is not a multiple of {BLOCK}")
@@ -499,5 +561,102 @@ def window_collide_sorted(
         split, _ROW_THREADS, _ptr(keys) if split > 1 else None, _stream(dev),
     )
     _raise_on(err, "window_collide_sorted")
-    LAUNCHES["window_collide_sorted"] += 1
+    LAUNCHES[launch_key] += 1
     return pos_o, vel_o, hit_o
+
+
+def window_collide_worklist_plain(
+    pos_s, vel_s, radius_s, restit_s, start, count, lanes, n_lanes,
+    tables: WindowTables, pos_out, vel_out, hit_out, *, w: int, k_static: int,
+    gravity: tuple, dt: float, backoff: float,
+):
+    """Plain PyTorch version of the worklist entry point: the listed lanes,
+    each alone in a row of LANE (``isolated_rows``), through
+    ``window_collide_sorted_plain`` -- the one-lane-per-row launch of the
+    host-read rescue's phase 2 (``core/step.py::_isolated_plan``).  Reads
+    ``n_lanes`` on the host."""
+    m = int(n_lanes)
+    if m == 0:
+        return
+    pick = lanes[:m].long()
+    rows = -(-m // SUB) * SUB
+    pick_p = torch.cat([pick, pick[:1].expand(rows - m)])  # padding: copies
+    args, _ = isolated_rows(pos_s[:, pick_p], vel_s[:, pick_p], radius_s[pick_p],
+                            restit_s[pick_p], start[pick_p], count[pick_p], w)
+    pos_o, vel_o, hit_o = window_collide_sorted_plain(
+        *args, tables, w=w, k_static=k_static, gravity=gravity, dt=dt,
+        backoff=backoff)
+    pos_out[:, pick] = pos_o[:, ::LANE][:, :m]
+    vel_out[:, pick] = vel_o[:, ::LANE][:, :m]
+    hit_out[pick] = hit_o[::LANE][:m]
+
+
+def window_collide_worklist(
+    pos_s,  # f32[3, N] sorted
+    vel_s,
+    radius_s,  # f32[N]
+    restit_s,
+    start,  # i32[N] each lane's first row in the pair table
+    count,  # i32[N] its candidate count
+    lanes,  # i32[N] listed lanes first
+    n_lanes,  # i32[] how many are listed, on the device
+    tables: WindowTables,
+    pos_out,  # f32[3, N], written at the listed lanes
+    vel_out,
+    hit_out,  # i32[N]
+    *,
+    w: int,
+    k_static: int,
+    gravity: tuple,
+    dt: float,
+    backoff: float,
+):
+    """Rescue phase 2: narrow phase, response and integration of the
+    first ``n_lanes`` lanes of ``lanes``, each alone, written in place into
+    ``pos_out``/``vel_out``/``hit_out`` (other lanes untouched).  Each
+    listed lane must fit a row's ``w``-row window alone (start % 128 +
+    count <= w; the rescue lists no other): then its result is, bit for
+    bit, the window kernel's for it alone in a row of LANE.  One launch
+    whose grid does not depend on the list, so the list's length never
+    leaves the device."""
+    n = pos_s.shape[-1]
+    kw = dict(w=w, k_static=k_static, gravity=gravity, dt=dt, backoff=backoff)
+    if pos_s.device.type == "cpu":
+        return window_collide_worklist_plain(
+            pos_s, vel_s, radius_s, restit_s, start, count, lanes, n_lanes,
+            tables, pos_out, vel_out, hit_out, **kw)
+    dev = pos_s.device
+    p_pad = tables.pairs.shape[1]
+    for name, t, dt_, shape in (
+        ("pos_s", pos_s, torch.float32, (3, n)),
+        ("vel_s", vel_s, torch.float32, (3, n)),
+        ("radius_s", radius_s, torch.float32, (n,)),
+        ("restit_s", restit_s, torch.float32, (n,)),
+        ("start", start, torch.int32, (n,)),
+        ("count", count, torch.int32, (n,)),
+        ("lanes", lanes, torch.int32, (n,)),
+        ("n_lanes", n_lanes, torch.int32, ()),
+        ("tables.pairs", tables.pairs, torch.float32, (9, p_pad)),
+        ("pos_out", pos_out, torch.float32, (3, n)),
+        ("vel_out", vel_out, torch.float32, (3, n)),
+        ("hit_out", hit_out, torch.int32, (n,)),
+    ):
+        _check(name, t, dt_, shape, dev)
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+
+    c = ctypes
+    fn = build.kernel_function("window_kernel", "psys_window_collide_worklist", [
+        *([c.c_void_p] * 9), c.c_int64, *([c.c_void_p] * 3), c.c_int64,
+        c.c_int32, *([c.c_float] * 6), c.c_int32, c.c_void_p,
+    ])
+    f32 = np.float32
+    err = fn(
+        _ptr(pos_s), _ptr(vel_s), _ptr(radius_s), _ptr(restit_s), _ptr(start),
+        _ptr(count), _ptr(lanes), _ptr(n_lanes), _ptr(tables.pairs), p_pad,
+        _ptr(pos_out), _ptr(vel_out), _ptr(hit_out), n, k_static,
+        float(f32(gravity[0])), float(f32(gravity[1])), float(f32(gravity[2])),
+        float(f32(dt)), float(f32(dt * dt)), float(f32(backoff)),
+        _WORKLIST_BLOCKS_PER_SM * _sm_count(dev), _stream(dev),
+    )
+    _raise_on(err, "window_collide_worklist")
+    LAUNCHES["window_collide_worklist"] += 1

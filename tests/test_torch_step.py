@@ -97,31 +97,32 @@ def dense_probe(fast):
 def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
     """Window 128 on the dense probe: overflow everywhere, and both
     rescue phases that fitting cells need run -- phase 1 relaunches the
-    window kernel on Morton-compacted lanes, phase 2 relaunches it one
-    lane per row; no cell of this scene needs phase 3 (the packed path).
+    window kernel on Morton-compacted lanes, phase 2 runs its worklist
+    entry point, each listed lane alone; no cell of this scene needs
+    phase 3 (the packed path).
     Port gather and kernel plans agree bitwise, and with the JAX step on
     the same state.  (Later steps of this spawn hit shared-edge near-ties
     that round differently under XLA's fused multiply-adds: ROADMAP.md
     C.)"""
     cfg, probe = dense_probe
-    calls = {"window": 0, "isolated": 0, "packed": 0}
-    wcs, iso = tstep.window_collide_sorted, tstep._isolated_plan
+    calls = {"window": 0, "worklist": 0, "packed": 0}
+    wcs, wcw = tstep.window_collide_sorted, tstep.window_collide_worklist
     scp = tstep.spatial_collide_packed
 
     def count_window(*a, **k):
         calls["window"] += 1
         return wcs(*a, **k)
 
-    def count_isolated(*a, **k):
-        calls["isolated"] += 1
-        return iso(*a, **k)
+    def count_listed(*a, **k):
+        calls["worklist"] += int(a[7] > 0)  # a launch with listed lanes
+        return wcw(*a, **k)
 
     def count_packed(*a, **k):
         calls["packed"] += 1
         return scp(*a, **k)
 
     monkeypatch.setattr(tstep, "window_collide_sorted", count_window)
-    monkeypatch.setattr(tstep, "_isolated_plan", count_isolated)
+    monkeypatch.setattr(tstep, "window_collide_worklist", count_listed)
     monkeypatch.setattr(tstep, "spatial_collide_packed", count_packed)
     outs = {}
     for plan in ("gather", "kernel"):
@@ -131,7 +132,8 @@ def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
         out, st = step(convert.state_from_numpy(probe, device="cpu"))
         assert st["window_overflow"] > 0
         outs[plan] = snapshot(out)
-    assert calls["window"] >= 6 and calls["isolated"] >= 2, calls
+    # per plan: the main launch and phase 1's, and one worklist launch
+    assert calls["window"] == 4 and calls["worklist"] == 2, calls
     assert calls["packed"] == 0, calls
     for f in ("pos", "vel", "collisions"):
         np.testing.assert_array_equal(outs["kernel"][f], outs["gather"][f], err_msg=f)
@@ -148,10 +150,11 @@ def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
 
 def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
     """Every route of a lane through the window kernel gives the same
-    bits: with every phase-1 chunk refused (all of its lanes then take
-    phase 2, one lane per row) the step equals the default step bit for
-    bit.  With phase 2 refused too, phase 3 (the packed path, for cells
-    larger than the rescue window) takes the lanes: exact collisions,
+    bits: with every lane of phase 1 refused (all of them then take
+    phase 2, each alone through the worklist entry point) the step equals
+    the default step bit for bit.  With phase 2 refused too, phase 3 (the
+    packed path, for cells larger than the rescue window, here let run
+    on a scene that has none) takes the lanes: exact collisions,
     positions within rtol 1e-5 / atol 1e-6 (it rounds differently)."""
     cfg, probe = dense_probe
     mask = probe["pos"][0] < 1e37
@@ -165,35 +168,36 @@ def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
 
     base = run()
     assert (base["collisions"] - probe["collisions"]).sum() > 0
-    rc, iso = tstep._rescue_chunk, tstep._isolated_plan
-    calls = {"isolated": 0, "packed": 0}
+    rc, p2, wcw = tstep._rescue_chunk, tstep._phase2_plan, tstep.window_collide_worklist
+    calls = {"listed": 0, "packed": 0}
 
     def refuse_chunk(*a, **k):
         redo, chunk, (rel, cnt, ws, k_cap, unfit) = rc(*a, **k)
         return redo, chunk, (rel, cnt, ws, k_cap, torch.ones_like(unfit))
 
-    def count_isolated(*a, **k):
-        calls["isolated"] += 1
-        return iso(*a, **k)
+    def count_listed(*a, **k):
+        calls["listed"] += int(a[7])  # n_lanes
+        return wcw(*a, **k)
 
     monkeypatch.setattr(tstep, "_rescue_chunk", refuse_chunk)
-    monkeypatch.setattr(tstep, "_isolated_plan", count_isolated)
+    monkeypatch.setattr(tstep, "window_collide_worklist", count_listed)
     phase2 = run()
-    assert calls["isolated"] >= 1
+    assert calls["listed"] >= 1
     for f in ("pos", "vel", "collisions"):
         np.testing.assert_array_equal(phase2[f], base[f], err_msg=f)
 
     scp = tstep.spatial_collide_packed
 
-    def refuse_isolated(*a, **k):
-        args, fit = iso(*a, **k)
-        return args, torch.zeros_like(fit)
+    def refuse_phase2(*a, **k):
+        start, count, fit = p2(*a, **k)
+        return start, count, torch.zeros_like(fit)
 
     def count_packed(*a, **k):
         calls["packed"] += 1
         return scp(*a, **k)
 
-    monkeypatch.setattr(tstep, "_isolated_plan", refuse_isolated)
+    monkeypatch.setattr(tstep, "_phase2_plan", refuse_phase2)
+    monkeypatch.setattr(tstep, "_phase3_possible", lambda sp: True)
     monkeypatch.setattr(tstep, "spatial_collide_packed", count_packed)
     phase3 = run()
     assert calls["packed"] >= 1
@@ -256,7 +260,9 @@ def test_runner_matches_per_step_and_jax(fast):
         r, ovf = runner(state, 75, with_stats=True)
         got = snapshot(r)
         assert len(ovf) == 75 and runner.steps == 75
-        assert runner.syncs.count >= 75  # one overflow read per step at least
+        # the re-sort flag under "auto", one read a step after step 0;
+        # none with a fixed resort_every
+        assert runner.syncs.count == (74 if kw["resort_every"] == "auto" else 0)
         np.testing.assert_array_equal(got["collisions"][mask],
                                       per_step["collisions"][mask], err_msg=str(kw))
         np.testing.assert_allclose(got["pos"][:, mask], per_step["pos"][:, mask],
@@ -295,7 +301,9 @@ def test_run_episode_spatial_on_cpu(fast):
     assert res.num_particles == 49 and res.num_steps == 60
     assert len(res.step_ms) == 60 and res.steps_per_sec > 0
     assert res.collisions.shape == (49,) and res.collisions.sum() > 0
-    assert twk.LAUNCHES == {"cells_window_lookup": 0, "window_collide_sorted": 0}
+    assert twk.LAUNCHES == {"cells_window_lookup": 0, "window_collide_sorted": 0,
+                            "window_collide_sorted_rescue": 0,
+                            "window_collide_worklist": 0}
 
 
 def test_plan_chooser_matches_jax():
