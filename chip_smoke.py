@@ -51,15 +51,22 @@ Phases (each raises on failure; nothing is caught and passed over):
   6. drive the particle-particle main path (``drive_p2p``): 1,000,000
      particles in the 160 x 80 x 160 gravity box of bench/configs.py
      config 4, 200 steps of make_p2p_step (variant "auto", which must
-     resolve to "kernel") and 50 steps of make_p2p_episode_runner, both
-     on the window kernel's entry point that plans in the kernel; launch
-     counters reset just before each; check every lane finite and inside
-     the box, contacts > 0, one kernel launch per step; on the state at
-     step 100 hold both entry points of the kernel (plan in the kernel;
-     explicit plan arrays from ops/p2p_plan.py) against their plain
-     versions on every lane (window 512, and 128 where lanes overflow),
-     the overflow mask included, and p2p_collide_window against
-     p2p_collide_sorted; time both;
+     resolve to "kernel"; a captured CUDA graph from the second step) and
+     50 steps of make_p2p_episode_runner (captured, after two warm
+     steps), both on the window kernel's entry point that plans in the
+     kernel and its worklist entry point (the fallback sized on the
+     device); launch counters reset just before each; check every lane
+     finite and inside the box, contacts > 0, each entry point launched
+     once per step, no host read; the overflows of the steps read once;
+     the same steps uncaptured (``uncaptured``) equal bit for bit, states
+     and overflow sequences, ms/step of both; the runner once more at
+     window 128, where lanes overflow, captured equal to uncaptured; on
+     the state at step 100 hold the three entry points of the kernel
+     (plan in the kernel; explicit plan arrays from ops/p2p_plan.py; the
+     worklist over the overflow lanes, also against the host-looped
+     fallback) against their plain versions on every lane (window 512,
+     and 128 where lanes overflow), the overflow mask included, and
+     p2p_collide_window against p2p_collide_sorted; time all three;
   8. (after 6, in the same process) drive the port's command line
      (``drive_cli``), every sub-step through ``cli.main`` with the default
      device (CUDA), checked and timed: ``bench`` of the three methods on
@@ -75,7 +82,7 @@ Phases (each raises on failure; nothing is caught and passed over):
      reading); ``simulate`` of the
      spatial method, 100 steps, with a checkpoint that must equal a fresh
      run's ``snapshot`` bit for bit; ``p2pbox`` at 1,000,000 particles, 50
-     steps (B3 once per step).  Then, on the spatial state at step 650,
+     steps (B3 and its worklist entry point once per step).  Then, on the spatial state at step 650,
      the oracle steps: "stream" against "packed" on every lane (hits equal
      but for near ties, counted), "dense" against "stream" on the 65,536
      active lanes whose cells hold the most candidates, brute force
@@ -92,7 +99,10 @@ Phases (each raises on failure; nothing is caught and passed over):
      with ``mesh=`` over steps 600-650 (a warm pass, then the timed pass,
      which must repeat it bit for bit), gathered and held bit for bit
      against the single-device runner on all 1,048,576 lanes, both
-     overflow sums printed; in every rank B1 (main window) and B2 against
+     overflow sums printed, with each rank's host reads per step (the
+     re-sort flag of the overflow summed on the device), its host integer
+     sums (none) and whether its step was captured (over NCCL; not over
+     gloo); in every rank B1 (main window) and B2 against
      their plain versions on the rank's state at step 650; config 5, 5
      timed steps (500,000 particles per rank), every particle kept and no
      halo or migration overflow.  Each rank's launches on the mesh
@@ -139,13 +149,15 @@ Phases (each raises on failure; nothing is caught and passed over):
      rescue's (``window_collide_sorted_rescue``), and nests the
      8,192-lane chunk's numbers;
      the explicit-plan entry point of the p2p kernel, which no main path
-     launches, is listed under that kernel's entry).
+     launches, and its worklist entry point are listed under that
+     kernel's entry).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -174,6 +186,7 @@ WINDOW_OPS_PER_LANE = 100
 RTOL, ATOL = 1e-6, 1e-5
 JAX_KERNELS = "particlesystemhybridcollisiondetection_tpu/ops/pallas/window_kernel.py"
 JAX_P2P_KERNEL = "particlesystemhybridcollisiondetection_tpu/ops/pallas/p2p_window_kernel.py"
+JAX_P2P_FALLBACK = "particlesystemhybridcollisiondetection_tpu/ops/p2p_sorted.py"
 PORT_CSRC = "particlesystemhybridcollisiondetection_tpu_torch/ops/cuda/csrc/"
 
 # the particle-particle path: bench/configs.py config 4
@@ -354,7 +367,7 @@ def sorted_plan(torch, sp, state, undecided=None):
                                    gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
     still = S._rescue_phase1(out, sorted_state, overflow, sp, key_s)
     start, count_2, fit = S._phase2_plan(sorted_state, sp)
-    lanes, n_lanes = S._worklist(still & fit)
+    lanes, n_lanes = wk.compact_lanes(still & fit)
     return ((key_s, lo, hi, sp.ctab),
             {"main": (main, sp.window),
              "rescue phase 1": ((*p1_state, rel_1, cnt_1, ws_1, kcap_1, sp.tables),
@@ -726,8 +739,9 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
 
 
 def drive_p2p(torch, card: str) -> list:
-    """Phase 5: the particle-particle path at full width.  Returns the
-    kernel-table entries of the p2p window kernel's two entry points."""
+    """Phase 6: the particle-particle path at full width.  Returns the
+    kernel-table entry of the p2p window kernel, its explicit-plan and
+    worklist entry points nested under it."""
     from particlesystemhybridcollisiondetection_tpu_torch.bench.configs import _box_state
     from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
@@ -737,15 +751,25 @@ def drive_p2p(torch, card: str) -> list:
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         p2p_window_kernel as pk,
     )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
 
     name_a, name_b = "p2p_window_collide_sorted", "p2p_window_collide_cells"
+    name_w = "p2p_collide_worklist"
     lo, hi = P2P_BOX
     cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
     state0 = _box_state(P2P_N, lo, hi, 0.4, 0.3, seed=0)
-    step = S.make_p2p_step(lo, hi, cfg, capacity=8, variant="auto", with_stats=True)
-    if step.variant != "kernel":
-        raise RuntimeError(f'variant "auto" chose {step.variant!r}, not "kernel"')
+
+    def make_step():
+        step = S.make_p2p_step(lo, hi, cfg, capacity=8, variant="auto",
+                               with_stats=True)
+        if step.variant != "kernel":
+            raise RuntimeError(f'variant "auto" chose {step.variant!r}, not "kernel"')
+        return step
+
+    step = make_step()
     runner = S.make_p2p_episode_runner(lo, hi, cfg, capacity=8)
     meta = runner.meta
     window = runner.window
@@ -771,56 +795,132 @@ def drive_p2p(torch, card: str) -> list:
     def stats(v):
         return f"min {min(v)} median {sorted(v)[len(v) // 2]} max {max(v)}"
 
-    launched = {name_a: 0, name_b: 0}  # over both drives of the path
+    def differ(a, b) -> int:
+        """Lanes on which two states differ in any bit."""
+        return (lane_diff(torch, a.pos, b.pos) + lane_diff(torch, a.vel, b.vel)
+                + lane_diff(torch, a.collisions, b.collisions))
 
-    def expect_launches(tag, want_a, want_b):
-        """Read the counters after a drive (they were reset just before)."""
-        got = pk.LAUNCHES[name_a], pk.LAUNCHES[name_b]
-        if got != (want_a, want_b):
-            raise RuntimeError(f"p2p {tag}: launches (explicit plan, plan in the "
-                               f"kernel) = {got}, expected {(want_a, want_b)}")
-        launched[name_a] += got[0]
-        launched[name_b] += got[1]
+    launched = {name_a: 0, name_b: 0, name_w: 0}  # over the main path's drives
 
-    # ---- the step path: 200 steps, snapshot at step 100 ----
+    def expect_launches(tag, steps, count=True):
+        """Read the counters after a drive of ``steps`` steps (reset just
+        before): each step launches the entry point that plans in the
+        kernel once and the worklist entry point once."""
+        got = dict(pk.LAUNCHES)
+        want = {name_a: 0, name_b: steps, name_w: steps}
+        if got != want:
+            raise RuntimeError(f"p2p {tag}: launches {got}, expected {want}")
+        if count:
+            for k in launched:
+                launched[k] += got[k]
+        return got
+
+    def drive_step(step_fn):
+        """P2P_STEPS steps from spawn: (state, state at P2P_SNAP_STEP, the
+        overflow of each step read once at the end, ms per segment)."""
+        s, ovf, seg_ms, snap = state0, [], [], None
+        for upto in (20, P2P_SNAP_STEP, P2P_STEPS):
+            fence(s.pos)
+            t0 = time.perf_counter()
+            for _ in range(upto - len(ovf)):
+                s, st = step_fn(s)
+                ovf.append(st["cell_overflow"])
+            fence(s.pos)
+            seg_ms.append((time.perf_counter() - t0) * 1000.0)
+            if upto == P2P_SNAP_STEP:
+                snap = s
+        seg = [seg_ms[0] / 20, (seg_ms[1] + seg_ms[2]) / (P2P_STEPS - 20)]
+        return s, snap, torch.stack(ovf).tolist(), seg
+
+    # ---- the step path: 200 steps (captured from the second), snapshot at
+    # step 100; then the same steps uncaptured, equal bit for bit ----
     pk.reset_launches()
-    s, ovf, seg_ms = state0, [], []
-    snap = None
-    for upto in (20, P2P_SNAP_STEP, P2P_STEPS):
-        fence(s.pos)
-        t0 = time.perf_counter()
-        for _ in range(upto - len(ovf)):
-            s, st = step(s)
-            ovf.append(int(st["cell_overflow"]))
-        fence(s.pos)
-        seg_ms.append((time.perf_counter() - t0) * 1000.0)
-        if upto == P2P_SNAP_STEP:
-            snap = s
-    expect_launches("step path", 0, P2P_STEPS)
+    s, snap, ovf, seg = drive_step(step)
+    expect_launches("step path", P2P_STEPS)
     contacts = check("step path", s)
-    print(f"[{card}] p2p step path (variant {step.variant}, plan in the kernel), "
-          f"{P2P_STEPS} steps at {n} particles: steps 1-20 {seg_ms[0] / 20:.3f} "
-          f"ms/step, steps 21-{P2P_STEPS} "
-          f"{(seg_ms[1] + seg_ms[2]) / (P2P_STEPS - 20):.3f} ms/step; "
-          f"host reads {step.syncs.count / P2P_STEPS:.2f}/step; cell_overflow "
-          f"(lanes redone by the fallback) {stats(ovf)}; contacts {contacts}; "
-          f"launches {P2P_STEPS}")
-
-    # ---- the persistent runner: 50 steps from the same state ----
+    eager_step = make_step()
     pk.reset_launches()
-    fence(state0.pos)
-    t0 = time.perf_counter()
-    r, r_ovf = runner(state0, P2P_RUNNER_STEPS, with_stats=True)
-    fence(r.pos)
-    runner_ms = (time.perf_counter() - t0) * 1000.0 / P2P_RUNNER_STEPS
-    expect_launches("runner", 0, P2P_RUNNER_STEPS)
-    r_contacts = check("runner", r)
-    print(f"[{card}] p2p episode runner, {P2P_RUNNER_STEPS} steps: {runner_ms:.3f} "
-          f"ms/step; host reads {runner.syncs.count / P2P_RUNNER_STEPS:.2f}/step; "
-          f"cell_overflow {stats(r_ovf)}; contacts {r_contacts}; launches "
-          f"{P2P_RUNNER_STEPS}")
+    with S.uncaptured():
+        e, _, e_ovf, e_seg = drive_step(eager_step)
+    expect_launches("step path, uncaptured", P2P_STEPS, count=False)
+    step_differ = differ(s, e)
+    print(f"[{card}] p2p step path (variant {step.variant}, captured: a graph "
+          f"replayed from step 2, launches per replay {step.launches}), "
+          f"{P2P_STEPS} steps at {n} particles: steps 1-20 {seg[0]:.3f} ms/step, "
+          f"steps 21-{P2P_STEPS} {seg[1]:.3f} ms/step; uncaptured {e_seg[0]:.3f} / "
+          f"{e_seg[1]:.3f} ms/step; host reads per step "
+          f"{step.syncs.count / P2P_STEPS:.4f} (uncaptured "
+          f"{eager_step.syncs.count / P2P_STEPS:.4f}); cell_overflow (lanes "
+          f"redone by the fallback, read once) {stats(ovf)}; contacts {contacts}; "
+          f"captured vs uncaptured: {step_differ} lanes differ in any bit, overflow "
+          f"differs on {sum(a != b for a, b in zip(ovf, e_ovf))} of {P2P_STEPS} steps")
+    if step.syncs.count or eager_step.syncs.count:
+        raise RuntimeError("the p2p step read the host")
+    if step_differ or ovf != e_ovf:
+        raise RuntimeError("the captured p2p step and the eager one disagree")
+    del e, eager_step
 
-    # ---- both entry points against their plain versions, state at step 100 ----
+    # ---- the persistent runner: 50 steps from the same state, captured and
+    # uncaptured, at window 512 and at 128, where lanes overflow ----
+    def drive_runner(run, tag):
+        """Warm ``run`` (its eager first step and the capture), then drive
+        it P2P_RUNNER_STEPS steps captured and the same steps uncaptured.
+        Returns the captured run's overflows and launches."""
+        run(state0, 2)
+        out = {}
+        for captured in (True, False):
+            pk.reset_launches()
+            fence(state0.pos)
+            t0 = time.perf_counter()
+            with contextlib.nullcontext() if captured else S.uncaptured():
+                r, r_ovf = run(state0, P2P_RUNNER_STEPS, with_stats=True)
+            fence(r.pos)
+            ms = (time.perf_counter() - t0) * 1000.0 / P2P_RUNNER_STEPS
+            got = expect_launches(f"{tag}, {'captured' if captured else 'uncaptured'}",
+                                  P2P_RUNNER_STEPS, count=captured and tag == "runner")
+            out[captured] = (r, r_ovf, ms, got)
+        (r, r_ovf, ms, got), (b, b_ovf, b_ms, _) = out[True], out[False]
+        r_contacts = check(tag, r)
+        bad = differ(r, b)
+        print(f"[{card}] p2p {tag} (window {run.window}), {P2P_RUNNER_STEPS} "
+              f"steps: captured {ms:.3f} ms/step, uncaptured {b_ms:.3f} ms/step; "
+              f"host reads {run.syncs.count} over {run.steps} steps; launches per "
+              f"replay {run.launches}; cell_overflow {stats(r_ovf)}; contacts "
+              f"{r_contacts}; captured vs uncaptured: {bad} lanes differ in any "
+              f"bit, overflow differs on {sum(x != y for x, y in zip(r_ovf, b_ovf))} "
+              f"of {P2P_RUNNER_STEPS} steps")
+        if run.syncs.count:
+            raise RuntimeError(f"the p2p {tag} read the host")
+        if bad or r_ovf != b_ovf:
+            raise RuntimeError(f"the captured p2p {tag} and the eager one disagree")
+        return r_ovf, got
+
+    drive_runner(runner, "runner")
+    runner_s = S.make_p2p_episode_runner(lo, hi, cfg, capacity=8,
+                                         window=P2P_SMALL_WINDOW)
+    ovf_s, launches_s = drive_runner(runner_s, "runner with overflow")
+    if not max(ovf_s) > 0:
+        raise RuntimeError(f"no lane overflowed a window of {P2P_SMALL_WINDOW}")
+    del runner_s
+    pk.reset_launches()
+
+    def offsets_read(cid) -> int:
+        """Distinct CSR offsets that the runs of particles in cells ``cid``
+        read: the two run ends of every in-grid group of every occupied
+        cell, each entry once (neighbouring cells share them)."""
+        dx, dy, dz = meta.dims
+        cells = torch.unique(cid[cid < meta.num_cells]).long()
+        cx, cy = cells // (dy * dz), (cells // dz) % dy
+        read = torch.zeros(meta.num_cells + 2, dtype=torch.bool, device=cid.device)
+        for ox in (-1, 0, 1):
+            for oy in (-1, 0, 1):
+                c = cells[(cx + ox >= 0) & (cx + ox < dx) & (cy + oy >= 0)
+                          & (cy + oy < dy)] + (ox * dy + oy) * dz
+                read[torch.clamp(c - 1, 0, meta.num_cells)] = True
+                read[torch.clamp(c + 2, 0, meta.num_cells)] = True
+        return int(read.sum())
+
+    # ---- every entry point against its plain version, state at step 100 ----
     dev = snap.pos.device
     cid_key = torch.cat([
         p2ps._cell_key(snap.pos, meta, active_mask(snap)),
@@ -832,7 +932,7 @@ def drive_p2p(torch, card: str) -> list:
     rows_s = rows[:, perm]
     pad = perm >= n
     real = torch.abs(rows_s[0]) < 5e37
-    plans, err = {}, {name_a: 0.0, name_b: 0.0}
+    plans, wl_cases, err = {}, {}, {name_a: 0.0, name_b: 0.0, name_w: 0.0}
     for w in (window, P2P_SMALL_WINDOW):
         rel, ws, k_cap, overflow = p2p_plan.window_geometry(starts, cnt, w)
         rows_pad = torch.cat([rows_s, p2ps._pad_columns(w, dev)], dim=1)
@@ -870,6 +970,50 @@ def drive_p2p(torch, card: str) -> list:
         if w == P2P_SMALL_WINDOW and not bool(overflow.any()):
             raise RuntimeError(f"no lane overflows a window of {w}")
 
+        # the worklist entry point (the fallback sized on the device) on the
+        # overflow lanes, against its plain version and against the
+        # host-looped fallback (one chunk: lanes are independent), every lane
+        lanes, n_lanes = wk.compact_lanes(overflow)
+        if bool((pad | ~real)[overflow].any()):
+            raise RuntimeError("a sentinel or pad lane overflowed its window")
+        res = {}
+        for route in ("kernel", "plain", "host-looped"):
+            mine = tuple(x.clone() for x in out_b[:3])
+            if route == "host-looped":
+                parts = p2ps.WindowParts(*mine, rows_s, overflow, perm, cid_s,
+                                         offsets, meta)
+                p2ps._p2p_chunked_fallback(parts, 0.5, n_k)
+            else:
+                fn = pk.p2p_collide_worklist if route == "kernel" else \
+                    pk.p2p_collide_worklist_plain
+                fn(rows_s, cid_s, offsets, meta, lanes, n_lanes, *mine, beta=0.5)
+            res[route] = mine
+        torch.cuda.synchronize()
+        listed = overflow.nonzero()[:, 0]
+        n_l = int(n_lanes)
+        n_cand = int(cnt[:, listed].sum()) - n_l  # the self pair is skipped
+        # the distinct columns the listed lanes' runs cover, their own
+        # columns among them, and the distinct CSR offsets they read
+        n_cols_w = span_columns(torch, torch.cat([starts[:, listed].reshape(-1).long(),
+                                                  listed]),
+                                torch.cat([cnt[:, listed].reshape(-1),
+                                           torch.ones_like(listed, dtype=torch.int32)]),
+                                n_k)
+        n_offsets_w = offsets_read(cid_s[listed])
+        for ref in ("plain", "host-looped"):
+            bad = [lane_diff(torch, a, b) for a, b in zip(res["kernel"], res[ref])]
+            print(f"[{card}] B3 {name_w} (w={w}, {n_l} listed lanes, {n_cand} "
+                  f"candidates) vs the {ref} fallback on every lane: pos differs on "
+                  f"{bad[0]} lanes, vel on {bad[1]}, ncon on {bad[2]}")
+            if any(bad):
+                raise RuntimeError(f"{name_w} (w={w}) disagrees with the {ref} fallback")
+        if n_l:
+            err[name_w] = max(err[name_w], max(
+                float(torch.abs(a[..., listed] - b[..., listed]).max())
+                for a, b in zip(res["kernel"][:2], res["plain"][:2])))
+        wl_cases[w] = ((rows_s, cid_s, offsets, meta, lanes, n_lanes), res["kernel"],
+                       n_l, n_cand, n_cols_w, n_offsets_w)
+
     # ---- p2p_collide_window (kernel + fallback) against p2p_collide_sorted ----
     act = active_mask(snap)
     ref, _ = p2ps.p2p_collide_sorted(snap, meta, active=act)
@@ -882,11 +1026,12 @@ def drive_p2p(torch, card: str) -> list:
         far = int((~(torch.isclose(out.pos, ref.pos, rtol=1e-5, atol=1e-5).all(0)
                      & torch.isclose(out.vel, ref.vel, rtol=1e-4, atol=1e-5).all(0))).sum())
         print(f"[{card}] p2p_collide_window (w={w}) vs p2p_collide_sorted: "
-              f"{n_over} lanes redone by the fallback, counts differ on {bad_c} "
+              f"{int(n_over)} lanes redone by the fallback, counts differ on {bad_c} "
               f"lanes, pos (rtol=1e-5 atol=1e-5) / vel (rtol=1e-4 atol=1e-5) "
               f"outside on {far} lanes; {dt_ms:.1f} ms")
         if bad_c or far:
             raise RuntimeError(f"p2p_collide_window (w={w}) disagrees with p2p_collide_sorted")
+    pk.reset_launches()
 
     # ---- time and bound at the main path's shapes (w = 512) ----
     args_a, args_b = plans[window]
@@ -904,20 +1049,7 @@ def drive_p2p(torch, card: str) -> list:
         cnt_, k_cap.t().repeat_interleave(pk.BLOCK, dim=1)), window - rel)
     n_cand = int(bound.sum())
     n_cols = span_columns(torch, (ws_l + rel).long(), bound, rows_pad.shape[1])
-    # distinct CSR offsets that the plan in the kernel reads: the two run
-    # ends of every in-grid group of every occupied cell, each entry once
-    # (neighbouring cells share them)
-    dx, dy, dz = meta.dims
-    cells = torch.unique(cid_s[cid_s < meta.num_cells]).long()
-    cx, cy = cells // (dy * dz), (cells // dz) % dy
-    read = torch.zeros(meta.num_cells + 2, dtype=torch.bool, device=dev)
-    for ox in (-1, 0, 1):
-        for oy in (-1, 0, 1):
-            c = cells[(cx + ox >= 0) & (cx + ox < dx) & (cy + oy >= 0) & (cy + oy < dy)] \
-                + (ox * dy + oy) * dz
-            read[torch.clamp(c - 1, 0, meta.num_cells)] = True
-            read[torch.clamp(c + 2, 0, meta.num_cells)] = True
-    n_offsets = int(read.sum())
+    n_offsets = offsets_read(cid_s)
     # explicit plan: each lane's pos/vel/radius/restitution (32 B), rel and
     # cnt (72 B), ws and k_cap, every distinct candidate column once (32 B),
     # out 28 B.  Plan in the kernel: each lane's column (32 B) and cell id
@@ -945,11 +1077,46 @@ def drive_p2p(torch, card: str) -> list:
             "max_abs_err": err[name], **t, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None})
+
+    # the worklist entry point at both windows.  Bytes, each input read
+    # once: per listed lane its own column (32 B), cell id (4 B), list
+    # entry (4 B) and output (28 B); each other distinct column its runs
+    # cover, the position and radius the distance test reads (16 B); each
+    # distinct CSR offset (4 B).  (32 B a candidate, as if neighbouring
+    # lanes shared no column, is no lower bound: the kernel beats it.)
+    # Operations: 53 a candidate, 8 a lane
+    wl = {}
+    for w, (wl_args, scratch, n_l, n_cand_w, n_cols_w, n_off_w) in wl_cases.items():
+        t = timed(torch, lambda: pk.p2p_collide_worklist(*wl_args, *scratch, beta=0.5),
+                  lambda: pk.p2p_collide_worklist_plain(*wl_args, *scratch, beta=0.5))
+        del t["by_kernel"]
+        n_bytes = 68 * n_l + 16 * (n_cols_w - n_l) + 4 * n_off_w
+        bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        ops_ms = (P2P_OPS_PER_CANDIDATE * n_cand_w + P2P_OPS_PER_LANE * n_l) \
+            / H100_F32_OPS_PER_S * 1e3
+        wl[w] = {**t, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                 "listed_lanes": n_l, "candidates": n_cand_w}
+        print(f"[{card}] B3 {name_w} (w={w}, {n_l} listed lanes, {n_cand_w} "
+              f"candidates, {n_cols_w} distinct columns, {n_off_w} distinct CSR "
+              f"offsets): {t['ms']:.4f} ms by events around the call, "
+              f"{ms_text(t['device_ms'])} on the device; plain {t['plain_ms']:.4f} "
+              f"ms; bound {wl[w]['bound_ms']:.4f} ms ({wl[w]['bound_by']}: "
+              f"{n_bytes} B = {bytes_ms:.4f} ms, {ops_ms:.4f} ms of operations)")
+    entry_w = {
+        "name": name_w, "route": "cuda", "source": PORT_CSRC + "p2p_window_kernel.cu",
+        # the JAX package runs this redo in XLA (a while_loop over chunks)
+        "replaces": f"{JAX_P2P_KERNEL}:77", "stands_for": f"{JAX_P2P_FALLBACK}:474",
+        "launches": launched[name_w],
+        "launches_runner_w128": launches_s[name_w],
+        "max_abs_err": err[name_w], **wl[window], "library_ms": None,
+        "window_128": {**wl[P2P_SMALL_WINDOW], "library_ms": None}}
     # the main path launches the kernel through its entry point that plans
-    # in the kernel; the explicit-plan entry point (the counterpart of the
+    # in the kernel, and redoes the overflow lanes through the worklist
+    # entry point; the explicit-plan entry point (the counterpart of the
     # TPU kernel's signature) is held against its plain version and timed
-    # above, and listed under the kernel's entry
-    entries[0]["other_entry_points"] = [entries[1]]
+    # above; both are listed under the kernel's entry
+    entries[0]["other_entry_points"] = [entries[1], entry_w]
     return entries[:1]
 
 
@@ -964,7 +1131,6 @@ def run_cli(card: str, tag: str, argv: list) -> tuple:
     """One command through the port's ``cli.main`` (default device,
     CUDA), its output echoed; raises on a non-zero return.  Returns
     (stdout text, wall seconds)."""
-    import contextlib
     import io
 
     from particlesystemhybridcollisiondetection_tpu_torch.cli import main as cli_main
@@ -1147,7 +1313,8 @@ def drive_cli(torch, card: str, snap) -> dict:
         launches["p2pbox"] = dict(pk.LAUNCHES)
         box = json.loads(text.strip().splitlines()[-1])
         want_b3 = {"p2p_window_collide_sorted": 0,
-                   "p2p_window_collide_cells": CLI_P2P_STEPS + 1}
+                   "p2p_window_collide_cells": CLI_P2P_STEPS + 1,
+                   "p2p_collide_worklist": CLI_P2P_STEPS + 1}
         if launches["p2pbox"] != want_b3 or box["contacts"] <= 0:
             raise RuntimeError(f"p2pbox launches {launches['p2pbox']} (want "
                                f"{want_b3}), contacts {box['contacts']}")
@@ -1324,12 +1491,26 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     # single-device runner; the timed passes must repeat it bit for bit
     warm = runner(local, MESH_STEPS)
     alone(local, MESH_STEPS)
+    # the host integer sums the mesh runner makes (the data-parallel
+    # module's host collectives), counted over its first timed pass
+    host_sums = [0]
+    summers = {f: getattr(dp, f) for f in ("sum_ints", "sum_int_list")}
+
+    def counted(fn):
+        def call(*args, **kw):
+            host_sums[0] += 1
+            return fn(*args, **kw)
+        return call
+
     ms = {"mesh": [], "alone": []}
     for turn in ("mesh", "alone", "mesh", "alone"):
         torch.cuda.synchronize()
         first_mesh = turn == "mesh" and not ms["mesh"]
         if first_mesh:
             wk.reset_launches()
+            reads0 = runner.syncs.count
+            for f, fn in summers.items():
+                setattr(dp, f, counted(fn))
         t0 = time.perf_counter()
         if turn == "mesh":
             res, ovf_t = runner(local, MESH_STEPS, with_stats=True)
@@ -1338,7 +1519,10 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
         torch.cuda.synchronize()
         ms[turn].append((time.perf_counter() - t0) * 1000.0 / MESH_STEPS)
         if first_mesh:
+            for f, fn in summers.items():
+                setattr(dp, f, fn)
             launches = dict(wk.LAUNCHES)
+            reads = (runner.syncs.count - reads0) / MESH_STEPS
             out, ovf = res, ovf_t
         elif turn == "alone":
             alone_out = res
@@ -1354,7 +1538,8 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     rec = {"rank": rank, "device": str(dp.rank_device(mesh)),
            "backend": dist.get_backend(), "n_local": out.pos.shape[-1],
            "setup_s": setup_s, "ms_mesh": ms["mesh"], "ms_alone": ms["alone"],
-           "overflow": ovf,
+           "overflow": ovf, "reads_per_step": reads, "host_sums": host_sums[0],
+           "captured": bool(runner._graphs),
            "repeat_diff": repeat_diff + alone_diff, "launches": launches,
            "b1": b1_vs_plain(torch, args, w, kw), "b2": b2_vs_plain(torch, b2_args)}
     del runner, alone, glob, local, out, warm, res, alone_out, b2_args, cases, args
@@ -1442,6 +1627,17 @@ def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dic
         if any(r["repeat_diff"] for r in recs):
             raise RuntimeError(f"{tag}: a timed pass differs from the warm pass "
                                "or from the slice run without the mesh")
+        # "auto" sums the overflow on the device; the host reads the flag
+        # derived from the sum, one a step after the first.  The step is
+        # captured where the collectives run on the device (NCCL)
+        print(f"[{card}] phase 9, {tag}: host reads per step "
+              + ", ".join(f"{r['reads_per_step']:.4f}" for r in recs)
+              + "; host integer sums " + ", ".join(str(r["host_sums"]) for r in recs)
+              + "; step captured " + ", ".join(str(r["captured"]) for r in recs))
+        if any(r["reads_per_step"] > 1 or r["host_sums"]
+               or r["captured"] != (backend == "nccl") for r in recs):
+            raise RuntimeError(f"{tag}: the mesh runner read or summed on the host, "
+                               "or was not captured as its backend implies")
         for r in recs:
             b1, b2 = r["b1"], r["b2"]
             print(f"[{card}]   rank {r['rank']} ({r['device']}): B1 main vs plain: "

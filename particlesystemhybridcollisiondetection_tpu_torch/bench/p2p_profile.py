@@ -6,9 +6,10 @@ Runs the 1,000,000-particle gravity box of ``configs.config_4`` and
 prints one JSON object per line, each with the card's name and power
 limit:
 
-  * ``sweep``: ms/step of ``make_p2p_step`` (variant "kernel") for each
-    window size, with the lanes redone by the fallback, the host reads
-    and the kernel launches per step;
+  * ``sweep``: ms/step of ``make_p2p_step`` (variant "kernel", a captured
+    CUDA graph a step) for each window size, with the lanes redone by the
+    fallback (read once, after the timed steps), the host reads and the
+    kernel launches per step;
   * ``stages``: the stages of one step at the default window, each timed
     with CUDA events (median over the steps), on states advanced by the
     real step; once as the step runs it (the kernel's entry point that
@@ -47,6 +48,9 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as p
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
     p2p_window_kernel as pk,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
+    compact_lanes,
+)
 
 CFG = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
 
@@ -73,6 +77,7 @@ def sweep(n: int, windows, warm: int, steps: int, card: str) -> None:
             ovf.append(st["cell_overflow"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1000.0 / steps
+        ovf = torch.stack(ovf).tolist()
         print(json.dumps({
             "sweep": {"window": w, "particles": n, "warm_steps": warm,
                       "steps": steps, "ms_per_step": ms,
@@ -80,8 +85,8 @@ def sweep(n: int, windows, warm: int, steps: int, card: str) -> None:
                       "fallback_lanes_median": statistics.median(ovf),
                       "fallback_lanes_max": max(ovf),
                       "host_reads_per_step": (step.syncs.count - reads0) / steps,
-                      "launches_per_step":
-                          pk.LAUNCHES["p2p_window_collide_cells"] / steps},
+                      "launches_per_step": {k: v / steps
+                                            for k, v in pk.LAUNCHES.items()}},
             "card": card}), flush=True)
 
 
@@ -101,7 +106,7 @@ def stages(n: int, warm: int, steps: int, window: int, plan: str, card: str) -> 
     plan_stages = () if plan == "kernel" else ("run_table", "run_bounds",
                                                "window_geometry")
     names = ("key_and_pad", "sort", "csr_offsets", *plan_stages, "gather_rows",
-             "kernel", "overflow_read", "unsort", "walls_integrate")
+             "kernel", "fallback", "unsort", "walls_integrate")
     times = {k: [] for k in names}
     for _ in range(steps):
         ev = []
@@ -138,7 +143,9 @@ def stages(n: int, warm: int, steps: int, window: int, plan: str, card: str) -> 
             *out, overflow = pk.p2p_window_collide_cells(
                 rows_pad, cid_s, offsets, meta, w=window, beta=0.5)
         mark()
-        int(overflow.sum().item())
+        lanes, n_lanes = compact_lanes(overflow)
+        pk.p2p_collide_worklist(rows_s, cid_s, offsets, meta, lanes, n_lanes, *out,
+                                beta=0.5)
         mark()
         st = p2ps._unsort(s, *out, perm)
         mark()

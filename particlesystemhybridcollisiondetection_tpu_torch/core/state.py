@@ -35,6 +35,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_constants: dict = {}
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values)`` (a flat sequence of numbers) on ``device``,
+    made once and kept: a host-to-device copy cannot be captured in a
+    CUDA graph, so the code of a captured step takes its constants (grid
+    origins, box corners) from here."""
+    key = (tuple(float(x) for x in values), dtype, torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
+
+
 class ParticleState(NamedTuple):
     """All tensors share the padded particle axis N.
 

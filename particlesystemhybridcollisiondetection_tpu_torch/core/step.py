@@ -34,14 +34,19 @@ the conditional nodes that this PyTorch does not expose, so the runner
 holds a graph for each branch and the host picks); the packed rescue
 phase on scenes whose densest cell outgrows the rescue window (decided
 when the tables are built; such a runner steps eagerly); the per-step
-step's overflow under ``with_stats``; with ``mesh=``, the overflow that
-the ranks sum each step.  ``_chunked_rescue``, the rescue looped on the
-host, is kept as the reference the tests and the smoke hold it to.
+step's overflow under ``with_stats``.  With ``mesh=`` the runner sums the
+overflow on the device and reads the summed flag.  ``_chunked_rescue``,
+the rescue looped on the host, is kept as the reference the tests and
+the smoke hold it to.  The gravity box's "kernel" step and its runner
+read nothing: their window-overflow fallback is sized on the device
+(``ops/p2p_sorted.py::_p2p_device_fallback``), and on CUDA each replays
+its step as one captured CUDA graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import warnings
 from typing import NamedTuple, Optional
@@ -58,12 +63,16 @@ from particlesystemhybridcollisiondetection_tpu_torch.core import vec
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
     active_mask,
+    device_constant,
     resolve_device,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops import narrow_phase as nphase
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as p2p_ops
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as p2ps
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.p2p_window_kernel import (
+    LAUNCHES as P2P_LAUNCHES,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     BLOCK,
     LANE,
@@ -73,6 +82,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
     build_code_table,
     build_window_tables,
     cells_window_lookup,
+    compact_lanes,
     isolated_rows,
     plan_tail,
     window_collide_sorted,
@@ -102,10 +112,11 @@ class HostSyncs:
     """Counts the device scalars read back to the host to decide a branch
     (each read waits for the device): the host's form of the JAX
     package's on-device branches.  Those that remain are the runner's
-    "auto" re-sort flag, the packed rescue phase where a scene needs it,
-    the per-step step's ``with_stats`` overflow and the sum over a mesh
-    (module docstring).  A runner's ``with_stats`` list, read once after
-    a call's last step, is the caller's read and not counted."""
+    "auto" re-sort flag (with a mesh, the flag of the summed overflow),
+    the packed rescue phase where a scene needs it, the per-step sorted
+    step's ``with_stats`` overflow and the p2p "sorted" variant's loop
+    bounds (module docstring).  A runner's ``with_stats`` list, read once
+    after a call's last step, is the caller's read and not counted."""
 
     def __init__(self):
         self.count = 0
@@ -701,7 +712,7 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
                            rescue_compact)
     # ---- phase 2: each remaining lane alone, one launch ----
     start, count, fit = _phase2_plan(sorted_state, sp)
-    lanes, n_lanes = _worklist(still & fit)
+    lanes, n_lanes = compact_lanes(still & fit)
     window_collide_worklist(*sorted_state, start, count, lanes, n_lanes, sp.tables,
                             pos_k, vel_k, hit_k, **_rescue_kw(sp))
     if _phase3_possible(sp):
@@ -753,18 +764,6 @@ def _phase2_plan(sorted_state, sp):
     start, count = info[0], info[1]
     fit = (count <= 0) | (start % LANE + count <= sp.rescue_window)
     return start, count, fit
-
-
-def _worklist(take):
-    """The lanes where ``take`` holds, in lane order, compacted on the
-    device (cumsum and scatter, no host read): (lanes i32[N], their
-    count i32[]); entries past the count are 0."""
-    n = take.shape[0]
-    t = take.to(torch.int32)
-    slot = torch.where(take, torch.cumsum(t, 0) - 1, n).long()
-    lanes = torch.zeros((n + 1,), dtype=torch.int32, device=take.device)
-    lanes.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=take.device))
-    return lanes[:n], t.sum(dtype=torch.int32)
 
 
 def _phase1_order(overflow, key_s):
@@ -1101,15 +1100,44 @@ _CAPTURE = True
 
 @contextlib.contextmanager
 def uncaptured():
-    """Test and smoke helper: inside it, sorted runners step eagerly on
-    CUDA (no graph is captured or replayed), running the code a captured
-    step holds, so the two can be held against each other."""
+    """Test and smoke helper: inside it, the sorted and p2p runners and
+    the p2p "kernel" step step eagerly on CUDA (no graph is captured or
+    replayed), running the code a captured step holds, so the two can be
+    held against each other."""
     global _CAPTURE
     was, _CAPTURE = _CAPTURE, False
     try:
         yield
     finally:
         _CAPTURE = was
+
+
+def _capture(body, counters: dict, pool=None, error_mode: str = "global"):
+    """Capture ``body()`` in a new CUDA graph (memory from ``pool`` when
+    given).  Returns (graph, what ``body`` returned, {counter: launches}):
+    a capture launches nothing, so the launches that the wrappers counted
+    go back out of ``counters``, and ``_replay`` adds them per replay.
+    Python's cycle collector is off during the capture: a graph that it
+    freed then (one held by dead objects) would invalidate the capture."""
+    before = dict(counters)
+    g = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(g, pool=pool, capture_error_mode=error_mode):
+            out = body()
+    finally:
+        gc.enable()
+    made = {k: counters[k] - before[k] for k in counters}
+    for k, v in made.items():
+        counters[k] -= v
+    return g, out, made
+
+
+def _replay(graph, launches: dict, counters: dict) -> None:
+    """Replay a captured step and count its kernel launches."""
+    graph.replay()
+    for k, v in launches.items():
+        counters[k] += v
 
 
 class _Carry(NamedTuple):
@@ -1142,11 +1170,17 @@ class SortedEpisodeRunner:
     package's ``_trigger_update``), one read a step.  Eager steps run the
     same code, reading that flag the same way.
 
-    Steps are eager with a ``mesh`` (the overflow is summed over it every
-    step under "auto", which decides each re-sort from the sum, else
-    once per call and only for ``with_stats``), and on scenes whose
-    densest cell outgrows the rescue window (``phase3``: the packed
-    rescue phase reads its counts on the host).  A failed capture raises."""
+    With a ``mesh``, "auto" sums the overflow over the ranks on the device
+    (an ``all_reduce`` of the step's scalar, the JAX package's ``psum``)
+    and derives the flag from the sum, so every rank reads the same flag
+    and takes the same branch; a fixed ``resort_every`` sums the
+    overflows of ``with_stats`` once per call.  A mesh step is captured,
+    the ``all_reduce`` inside the graph, when the mesh's collectives run
+    on the device (NCCL); where they stage through host memory (gloo:
+    ranks sharing one card, or CPU ranks) it steps eagerly.  Steps are
+    also eager on scenes whose densest cell outgrows the rescue window
+    (``phase3``: the packed rescue phase reads its counts on the host).
+    A failed capture raises."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
                  rescue_compact: bool, tex=None, mesh=None):
@@ -1164,9 +1198,10 @@ class SortedEpisodeRunner:
         self.steps = 0
         #: the packed rescue phase can run (decided here, from the tables)
         self.phase3 = _phase3_possible(sp)
-        #: steps are captured and replayed (CUDA, no mesh, no phase 3)
-        self.graphed = (sp.gravity.device.type == "cuda" and mesh is None
-                        and not self.phase3)
+        #: steps are captured and replayed (CUDA, no phase 3, collectives
+        #: on the device)
+        self.graphed = (sp.gravity.device.type == "cuda" and not self.phase3
+                        and (mesh is None or not dp.through_host(mesh)))
         #: kernel launches per replay, by wrapper, once captured
         self.launches: dict = {}
         self._carry: dict = {}  # N -> _Carry
@@ -1210,8 +1245,9 @@ class SortedEpisodeRunner:
         sortedness is a locality hint, the rescue redoes whatever no
         longer fits its window.  In hybrid mode the screen-space stage
         runs first and its undecided mask follows the rows through the
-        sort.  Without a mesh, "auto" then sets ``b.resort`` on the
-        device from this step's overflow."""
+        sort.  "auto" then sets ``b.resort`` on the device from this
+        step's overflow, summed over the mesh if there is one (the step's
+        only collective; every rank reaches it)."""
         rows8, aux = b.rows8, b.aux
         if self.tex is not None:
             r8, ax, und = self._ss_stage(rows8, aux)
@@ -1231,13 +1267,15 @@ class SortedEpisodeRunner:
         rows8[0:3].copy_(pos_k)
         rows8[3:6].copy_(vel_k)
         aux[0].add_(hit_k)
-        b.n_over.copy_(n_over)
-        if self.resort_every == "auto" and self.mesh is None:
+        if self.resort_every == "auto":
+            if self.mesh is not None:
+                n_over = dp.all_sum(n_over, self.mesh)
             # the trigger (the JAX package's _trigger_update): base is the
             # overflow right after the most recent sort
             if do_sort:
                 b.base.copy_(n_over)
             b.resort.copy_(n_over > b.base + self.resort_threshold)
+        b.n_over.copy_(n_over)
 
     def _capture(self, n: int, b: _Carry) -> dict:
         """Capture the step with and without the re-sort (one memory
@@ -1245,16 +1283,15 @@ class SortedEpisodeRunner:
         ``self.launches`` and back out of ``LAUNCHES``: a capture
         launches nothing."""
         graphs, made, pool = {}, [], None
+        # a mesh's NCCL watchdog thread queries events while this thread
+        # captures: only this thread's calls may break the capture
+        mode = "global" if self.mesh is None else "thread_local"
         for do_sort in (True, False):
-            before = dict(LAUNCHES)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool):
-                self._step(b, do_sort)
+            g, _, launches = _capture(lambda: self._step(b, do_sort), LAUNCHES,
+                                      pool, mode)
             pool = g.pool()
             graphs[do_sort] = g
-            made.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
-            for k, v in made[-1].items():
-                LAUNCHES[k] -= v
+            made.append(launches)
         if made[0] != made[1]:
             raise RuntimeError(f"the captured steps launch different kernels: "
                                f"{made}")
@@ -1265,7 +1302,8 @@ class SortedEpisodeRunner:
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
         """``with_stats=True``: also return the per-step window-overflow
-        counts (host ints, read once after the last step)."""
+        counts (host ints, read once after the last step; with a mesh,
+        summed over its ranks)."""
         n = state.pos.shape[-1]
         dev = state.pos.device
         if dev != self.sp.gravity.device:
@@ -1285,15 +1323,14 @@ class SortedEpisodeRunner:
         auto = self.resort_every == "auto"
         overflows = []
         # "auto": step 0 establishes the order; later steps re-sort when
-        # the overflow exceeds the overflow measured right after the most
-        # recent sort by resort_threshold.  With a mesh the overflow is
-        # summed first, so every rank takes the same branch at every step;
-        # the sum is the loop's only collective and every rank reaches it
-        do_sort, base = True, 0
+        # the flag the previous step set on the device says so (with a
+        # mesh, from the overflow summed over it: every rank reads the
+        # same flag and takes the same branch)
+        do_sort = True
         for i in range(num_steps):
             if i and not auto:
                 do_sort = i % self.resort_every == 0
-            elif i and self.mesh is None:
+            elif i:
                 do_sort = bool(self.syncs.read(b.resort))
             graphs = self._graphs.get(n) if graphed else None
             if graphs is None and graphed and n in self._warm:
@@ -1302,17 +1339,10 @@ class SortedEpisodeRunner:
                 self._step(b, do_sort)
                 self._warm.add(n)
             else:
-                graphs[do_sort].replay()
-                for k, v in self.launches.items():
-                    LAUNCHES[k] += v
-            if self.mesh is not None and auto:
-                n_over = dp.sum_ints(self.syncs.read(b.n_over), self.mesh)
-                base = n_over if do_sort else base
-                do_sort = n_over > base + self.resort_threshold
-                overflows.append(n_over)
-            elif with_stats:
+                _replay(graphs[do_sort], self.launches, LAUNCHES)
+            if with_stats:
                 overflows.append(b.n_over.clone())
-        if overflows and not isinstance(overflows[0], int):
+        if overflows:
             overflows = torch.stack(overflows).tolist()
         if with_stats and not auto and self.mesh is not None:
             overflows = dp.sum_int_list(overflows, self.mesh)
@@ -1366,9 +1396,9 @@ def make_sorted_episode_runner(
     rank's slice, whose particle count must divide by 1024.  Each rank
     keeps its own persistent order and restores its own ids (local sorts
     never move a particle to another rank).  "auto" sums each step's
-    overflow over the mesh and decides the re-sort from that sum; with a
-    fixed ``resort_every`` the overflows of ``with_stats`` are summed
-    once, after the call's last step.
+    overflow over the mesh on the device and decides the re-sort from
+    that sum; with a fixed ``resort_every`` the overflows of
+    ``with_stats`` are summed once, after the call's last step.
     """
     check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
     sp = _build_sorted(
@@ -1524,19 +1554,32 @@ def make_p2p_step(
     in z; else "slots".  The step's ``variant`` attribute names the one
     chosen, its ``syncs`` attribute counts its host reads.
 
+    The "kernel" variant reads nothing back (``syncs.count`` stays 0): the
+    counterpart of the JAX package's two jitted programs.  On CUDA it
+    holds, per particle count, a captured CUDA graph over static input
+    buffers: the first call for a count steps eagerly and then captures
+    the step; every later call copies the state in, replays, and
+    returns fresh tensors (a state the caller keeps never changes under
+    it).  ``launches`` holds a replay's kernel launches, which each replay
+    adds to the p2p kernel's ``LAUNCHES``.  ``uncaptured()`` steps
+    eagerly.  A failed capture raises.
+
     ``with_stats``: return ``(state, {"cell_overflow": ...})`` so
     saturated-cell drops (one-sided impulses) are observable.  The
     sorted variant cannot saturate and always reports 0.  For the kernel
-    variant it is a host int: the particles redone exactly by the
-    window-overflow fallback (results stay exact).
+    variant it is an i32 device scalar (as in the JAX package): the
+    particles redone exactly by the window-overflow fallback (results
+    stay exact).
     ``max_radius``: largest particle radius in the state
     (heterogeneous-radii runs must pass it).
     ``window``/``fallback_capacity``: kernel-variant tuning (per-row
-    window size and exact-redo chunk size; see ops/p2p_sorted).
+    window size, and the chunk size of the host-looped reference
+    fallback, which no step runs; see ops/p2p_sorted).
     """
     dev = resolve_device(device)
     meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)
     gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    box = _box(box_lo, box_hi, dev)
     if variant == "auto":
         if meta.dims[2] >= 3:
             variant = "kernel" if dev.type == "cuda" else "sorted"
@@ -1553,32 +1596,84 @@ def make_p2p_step(
         if variant == "kernel":
             return p2ps.p2p_collide_window(
                 state, meta, active=act, window=window,
-                fallback_capacity=fallback_capacity, syncs=syncs)
+                fallback_capacity=fallback_capacity)
         if variant == "sorted":
             return p2ps.p2p_collide_sorted(state, meta, active=act, syncs=syncs)
         if variant == "dense":
             return p2p_collide_dense(state, meta, active=act)
         return p2p_ops.p2p_collide(state, meta, active=act)
 
-    def step(state: ParticleState):
+    def eager(state: ParticleState):
         state, overflow = collide(state)
-        out = _walls_integrate(state, box_lo, box_hi, gravity, cfg.dt)
+        return _walls_integrate(state, *box, gravity, cfg.dt), overflow
+
+    graphs: dict = {}  # N -> (graph, static input state, static outputs)
+    launches: dict = {}  # a replay's kernel launches, once captured
+
+    def run(state: ParticleState):
+        n = state.pos.shape[-1]
+        if not (variant == "kernel" and dev.type == "cuda" and _CAPTURE):
+            return eager(state)
+        if n not in graphs:
+            # the first call for a count steps eagerly, then captures
+            result = eager(state)
+            static = ParticleState(*(x.clone(memory_format=torch.contiguous_format)
+                                     for x in state))
+            g, out, made = _capture(lambda: eager(static), P2P_LAUNCHES)
+            graphs[n] = (g, static, out)
+            launches.update(made)
+            return result
+        g, static, (out, overflow) = graphs[n]
+        for dst, src in zip(static, state):
+            dst.copy_(src)
+        _replay(g, launches, P2P_LAUNCHES)
+        return state._replace(pos=out.pos.clone(), vel=out.vel.clone(),
+                              collisions=out.collisions.clone()), overflow.clone()
+
+    def step(state: ParticleState):
+        out, overflow = run(state)
         return (out, {"cell_overflow": overflow}) if with_stats else out
 
     step.variant = variant
     step.syncs = syncs
+    step.launches = launches
     return step
+
+
+def _box(box_lo, box_hi, device):
+    """The box corners as f32 device tensors (made once: a captured step
+    copies nothing from the host)."""
+    return tuple(device_constant(b, torch.float32, device) for b in (box_lo, box_hi))
+
+
+class _P2PCarry(NamedTuple):
+    """The p2p runner's carried buffers for one padded particle count,
+    updated in place by every step (the addresses its graph reads and
+    writes)."""
+
+    rows8: torch.Tensor  # f32[8, n_k]: pos3 vel3 radius restitution
+    aux: torch.Tensor  # i32[2, n_k]: collisions, original ids
+    n_over: torch.Tensor  # i32[]: this step's window overflow
 
 
 class P2PEpisodeRunner:
     """Gravity-box episode runner with PERSISTENT sorted order (see
     make_p2p_episode_runner).  ``runner(state, num_steps)`` returns the
     state in the original particle order; ``syncs.count`` and ``steps``
-    count host reads and steps over all calls."""
+    count host reads and steps over all calls.
+
+    No step reads the host (``syncs.count`` stays 0): the fallback is
+    sized on the device, and every step sorts, so a step has no branch.
+    On CUDA (``graphed``) the step is one captured CUDA graph per padded
+    particle count: the first step for a count runs eagerly, the next
+    captures it, and every step from then on replays it.  ``launches``
+    holds a replay's kernel launches, which each replay adds to the p2p
+    kernel's ``LAUNCHES``.  ``uncaptured()`` steps eagerly.  A failed
+    capture raises."""
 
     def __init__(self, box_lo, box_hi, cfg: SimConfig, meta: pg.PGridMeta,
                  window: int, fallback_capacity: int, device: torch.device):
-        self.box_lo, self.box_hi = box_lo, box_hi
+        self.box = _box(box_lo, box_hi, device)
         self.cfg = cfg
         self.meta = meta
         self.window = window
@@ -1587,59 +1682,90 @@ class P2PEpisodeRunner:
                                     device=device)
         self.syncs = HostSyncs()
         self.steps = 0
+        #: steps are captured and replayed (CUDA)
+        self.graphed = device.type == "cuda"
+        #: kernel launches per replay, by wrapper, once captured
+        self.launches: dict = {}
+        self._carry: dict = {}  # n_k -> _P2PCarry
+        self._graphs: dict = {}  # n_k -> CUDAGraph
+        self._warm: set = set()  # n_k whose first step ran (eagerly)
 
-    def _step(self, rows8, aux):
-        """One step on the carried rows: plan + kernel, fallback, then
-        walls and integration in sorted order."""
+    def _carry_for(self, n_k: int, dev) -> _P2PCarry:
+        b = self._carry.get(n_k)
+        if b is None:
+            i32 = dict(dtype=torch.int32, device=dev)
+            b = self._carry[n_k] = _P2PCarry(
+                rows8=torch.empty((8, n_k), dtype=torch.float32, device=dev),
+                aux=torch.empty((2, n_k), **i32), n_over=torch.zeros((), **i32))
+        return b
+
+    def _step(self, b: _P2PCarry):
+        """One step in place on the carried buffers: plan + kernel, the
+        device-sized fallback, then walls and integration in sorted
+        order."""
+        rows8, aux = b.rows8, b.aux
         active = torch.abs(rows8[0]) < FLOAT_SENTINEL * 0.5
         cid_key = p2ps._cell_key(rows8[0:3], self.meta, active)
         parts = p2ps._phase1_core(rows8, cid_key, self.meta, beta=0.5,
                                   window=self.window)
-        pos_k, vel_k, ncon_k, n_over = p2ps._p2p_chunked_fallback(
-            parts, 0.5, self.fallback_capacity, self.syncs)
+        pos_k, vel_k, ncon_k, n_over = p2ps._p2p_device_fallback(parts, 0.5)
         rows_s, perm = parts.rows_s, parts.perm
         aux_s = aux[:, perm]
         st = _walls_integrate(
             ParticleState(pos=pos_k, vel=vel_k, collisions=aux_s[0],
                           radius=rows_s[6], restitution=rows_s[7]),
-            self.box_lo, self.box_hi, self.gravity, self.cfg.dt,
+            *self.box, self.gravity, self.cfg.dt,
         )
-        rows_out = torch.cat([st.pos, st.vel, rows_s[6:8]], dim=0)
+        rows8[0:3].copy_(st.pos)
+        rows8[3:6].copy_(st.vel)
+        rows8[6:8].copy_(rows_s[6:8])
         # as in the JAX package's runner, the carried counter takes the
         # particle contacts only: wall hits (st.collisions) are not added
-        aux_out = torch.stack([aux_s[0] + ncon_k, aux_s[1]])
-        return rows_out, aux_out, n_over
+        aux[0].copy_(aux_s[0] + ncon_k)
+        aux[1].copy_(aux_s[1])
+        b.n_over.copy_(n_over)
 
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
         """``with_stats=True``: also return the per-step counts of lanes
-        redone by the window-overflow fallback (host ints)."""
+        redone by the window-overflow fallback (host ints, read once after
+        the last step)."""
         n = state.pos.shape[-1]
         dev = state.pos.device
         if dev != self.gravity.device:
             raise ValueError(f"state is on {dev}, the runner on "
                              f"{self.gravity.device}")
         n_k = ((n + BLOCK - 1) // BLOCK) * BLOCK
-        # carried: rows8 f32[8, n_k] = pos3 vel3 radius restitution;
-        # aux i32[2, n_k] = (collisions, original ids)
-        rows8 = p2ps._state_rows(state)
-        coll = state.collisions
+        b = self._carry_for(n_k, dev)
+        b.rows8[:, :n].copy_(p2ps._state_rows(state))
+        b.aux[0, :n].copy_(state.collisions)
         if n_k > n:
-            rows8 = torch.cat([rows8, p2ps._pad_columns(n_k - n, dev)], dim=1)
-            coll = torch.cat([coll, torch.zeros((n_k - n,), dtype=torch.int32,
-                                                device=dev)])
-        aux = torch.stack([coll, torch.arange(n_k, dtype=torch.int32, device=dev)])
+            b.rows8[:, n:].copy_(p2ps._pad_columns(n_k - n, dev))
+            b.aux[0, n:].zero_()
+        b.aux[1].copy_(torch.arange(n_k, dtype=torch.int32, device=dev))
+        graphed = self.graphed and _CAPTURE
         overflows = []
         for _ in range(num_steps):
-            rows8, aux, n_over = self._step(rows8, aux)
-            overflows.append(n_over)
+            g = self._graphs.get(n_k) if graphed else None
+            if g is None and graphed and n_k in self._warm:
+                g, _, self.launches = _capture(lambda: self._step(b), P2P_LAUNCHES)
+                self._graphs[n_k] = g
+            if g is None:
+                self._step(b)
+                self._warm.add(n_k)
+            else:
+                _replay(g, self.launches, P2P_LAUNCHES)
+            if with_stats:
+                overflows.append(b.n_over.clone())
+        if overflows:
+            overflows = torch.stack(overflows).tolist()
         self.steps += num_steps
         # restore the original order once
-        ids = aux[1].long()
-        out8 = torch.empty_like(rows8)
-        out_aux = torch.empty_like(aux)
-        out8[:, ids] = rows8
-        out_aux[:, ids] = aux
+        ids = b.aux[1].long()
+        out8 = torch.empty_like(b.rows8)
+        out_aux = torch.empty_like(b.aux)
+        out8[:, ids] = b.rows8
+        out_aux[:, ids] = b.aux
         out = state._replace(pos=out8[0:3, :n], vel=out8[3:6, :n],
                              collisions=out_aux[0, :n])
         return (out, overflows) if with_stats else out
@@ -1667,7 +1793,9 @@ def make_p2p_episode_runner(
     hint, and every step sorts.  What persisting the order removes is
     the per-step order RESTORATION and the per-step sentinel pad: the
     carried [8, n_k] rows stay in the previous step's sorted order and
-    the original order is restored once, at the end of the call.
+    the original order is restored once, at the end of the call.  No step
+    reads the host, and on CUDA each step is replayed from a captured
+    CUDA graph (``P2PEpisodeRunner``).
     """
     dev = resolve_device(device)
     meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)

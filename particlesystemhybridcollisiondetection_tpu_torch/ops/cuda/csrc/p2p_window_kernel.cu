@@ -16,7 +16,7 @@
 // beta * overlap * m_j / (m_i + m_j), m = r * r * r, accumulated in
 // (g, k) order.  Out: pos + dp, vel + dv, contact count.
 //
-// One device body, two entry points:
+// Two entry points share the window body:
 //
 //   * psys_p2p_window_collide, the explicit plan: rel, cnt i32[9, n],
 //     ws i32[n/1024, 9, 8] and k_cap i32[n/1024, 9] come from
@@ -32,6 +32,20 @@
 //     cnt > 0 && (rel < 0 || rel + cnt > w), and rel clipped to
 //     [0, w - 1].  It also writes the overflow flag per lane.  The step
 //     then builds no [18, C] run table and no [9, N] plan array.
+//
+// and a second body for the lanes whose runs overflowed their windows:
+//
+//   * psys_p2p_collide_worklist, the exact redo: lanes[0 .. *n_lanes)
+//     (sorted indices, compacted on the device; the length is read from
+//     device memory, so the host never learns it), one thread a listed
+//     lane over a fixed grid, grid-stride over the list.  The thread
+//     walks the lane's nine FULL runs (derived from the cell ids and
+//     the offsets as above, no window), candidates in (g, k) order, the
+//     self pair skipped by index, and writes pos, vel and ncon of the
+//     listed lanes in place.  It computes what the host-looped chunked
+//     fallback (ops/p2p_sorted.py::_p2p_chunked_fallback) computes for
+//     those lanes, bit for bit: one thread keeps the sums sequential,
+//     where a warp reduction would reorder them.
 //
 // The TPU kernel loops k < k_cap[b, g] for the whole block and masks
 // k < cnt and rel + k < w per lane.  Here a lane's candidates are
@@ -121,6 +135,109 @@ struct Grid {
   int32_t num_cells, dx, dy, dz;
 };
 
+// A particle's cell as the run construction needs it: parked particles
+// (c == num_cells) are not live and have no runs.
+struct Cell {
+  bool live;
+  int32_t cs, cx, cy;
+};
+
+__device__ __forceinline__ Cell cell_of(const Grid& grid, int32_t c) {
+  Cell cell;
+  cell.live = c < grid.num_cells;
+  cell.cs = min(c, grid.num_cells - 1);
+  cell.cx = cell.cs / (grid.dy * grid.dz);
+  cell.cy = (cell.cs / grid.dz) % grid.dy;
+  return cell;
+}
+
+// Group g's full run [start, start + count) (run_table and run_bounds of
+// ops/p2p_plan.py): the table's zero / last padding is a clamp of the
+// index; out-of-grid rows and parked particles get count 0.
+__device__ __forceinline__ void full_run(const Grid& grid, const Cell& cell, int g,
+                                         int32_t& start, int32_t& count) {
+  const int ox = g / 3 - 1, oy = g % 3 - 1;
+  const int32_t off = (ox * grid.dy + oy) * grid.dz;
+  const int32_t st = grid.offsets[min(max(cell.cs + off - 1, 0), grid.num_cells)];
+  const int32_t en = grid.offsets[min(max(cell.cs + off + 2, 0), grid.num_cells)];
+  const bool ok = cell.live && (cell.cx + ox >= 0) && (cell.cx + ox < grid.dx) &&
+                  (cell.cy + oy >= 0) && (cell.cy + oy < grid.dy);
+  start = st;
+  count = ok ? en - st : 0;
+}
+
+// A lane's own values and its running sums.
+struct Lane {
+  float px, py, pz, vx, vy, vz, r, e, m;
+  float dvx, dvy, dvz, dpx, dpy, dpz;
+  int32_t ncon;
+};
+
+// Lane i's values from its column of an [8, pitch] row array, sums at 0.
+__device__ __forceinline__ Lane load_lane(const float* rows, int64_t pitch, int64_t i) {
+  Lane l;
+  l.px = rows[i];
+  l.py = rows[pitch + i];
+  l.pz = rows[2 * pitch + i];
+  l.vx = rows[3 * pitch + i];
+  l.vy = rows[4 * pitch + i];
+  l.vz = rows[5 * pitch + i];
+  l.r = rows[6 * pitch + i];
+  l.e = rows[7 * pitch + i];
+  l.m = l.r * l.r * l.r;
+  l.dvx = l.dvy = l.dvz = l.dpx = l.dpy = l.dpz = 0.f;
+  l.ncon = 0;
+  return l;
+}
+
+// Candidate j of lane l (ops/p2p.py::pair_contact, operation for
+// operation): its position (qx, qy, qz) and radius rj, and `col`, its
+// column of an [8, pitch] row array, whose velocity and restitution are
+// read only when the pair touches.  A candidate that does not touch adds
+// nothing: in the plain version it adds +-0 to sums that start at +0,
+// which leaves their bits as they are.
+__device__ __forceinline__ void add_contact(Lane& l, float qx, float qy, float qz,
+                                            float rj, const float* col, int64_t pitch,
+                                            float beta) {
+  const float dx = l.px - qx;
+  const float dy = l.py - qy;
+  const float dz = l.pz - qz;
+  const float dist2 = dx * dx + dy * dy + dz * dz;
+  const float rsum = l.r + rj;
+  if (!((dist2 < rsum * rsum) && (dist2 > 0.f))) return;  // not touching
+  const float dist = sqrtf(max_nan(dist2, 1e-30f));
+  const float nx = dx / dist, ny = dy / dist, nz = dz / dist;
+  const float rvx = l.vx - col[3 * pitch];
+  const float rvy = l.vy - col[4 * pitch];
+  const float rvz = l.vz - col[5 * pitch];
+  const float vn = rvx * nx + rvy * ny + rvz * nz;
+  const float ee = 0.5f * (l.e + col[7 * pitch]);
+  const float mj = rj * rj * rj;
+  const float wgt = mj / (l.m + mj);
+  const float imp = (vn < 0.f) ? -(1.0f + ee) * vn * wgt : 0.f;
+  const float overlap = rsum - dist;
+  const float push = beta * overlap * wgt;
+  l.dvx = l.dvx + nx * imp;
+  l.dvy = l.dvy + ny * imp;
+  l.dvz = l.dvz + nz * imp;
+  l.dpx = l.dpx + nx * push;
+  l.dpy = l.dpy + ny * push;
+  l.dpz = l.dpz + nz * push;
+  l.ncon += 1;
+}
+
+// pos + dp, vel + dv and the contact count of lane i into [3, n] / [n].
+__device__ __forceinline__ void store(const Lane& l, float* pos_out, float* vel_out,
+                                      int32_t* ncon_out, int64_t n, int64_t i) {
+  pos_out[i] = l.px + l.dpx;
+  pos_out[n + i] = l.py + l.dpy;
+  pos_out[2 * n + i] = l.pz + l.dpz;
+  vel_out[i] = l.vx + l.dvx;
+  vel_out[n + i] = l.vy + l.dvy;
+  vel_out[2 * n + i] = l.vz + l.dvz;
+  ncon_out[i] = l.ncon;
+}
+
 struct Plan {
   const int32_t* rel;    // i32[9, n]
   const int32_t* cnt;    // i32[9, n]
@@ -151,46 +268,29 @@ __global__ void __launch_bounds__(LANE, 8) p2p_window_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int64_t i = (int64_t)blockIdx.x * LANE + tid;
 
-  float px, py, pz, vx, vy, vz, r, e;
+  Lane l;
   if (CELLS) {
-    px = rows_pad[i];
-    py = rows_pad[n_pad + i];
-    pz = rows_pad[2 * n_pad + i];
-    vx = rows_pad[3 * n_pad + i];
-    vy = rows_pad[4 * n_pad + i];
-    vz = rows_pad[5 * n_pad + i];
-    r = rows_pad[6 * n_pad + i];
-    e = rows_pad[7 * n_pad + i];
+    l = load_lane(rows_pad, n_pad, i);
   } else {
-    px = pos[i], py = pos[n + i], pz = pos[2 * n + i];
-    vx = vel[i], vy = vel[n + i], vz = vel[2 * n + i];
-    r = radius[i];
-    e = restit[i];
+    l.px = pos[i], l.py = pos[n + i], l.pz = pos[2 * n + i];
+    l.vx = vel[i], l.vy = vel[n + i], l.vz = vel[2 * n + i];
+    l.r = radius[i];
+    l.e = restit[i];
+    l.m = l.r * l.r * l.r;
+    l.dvx = l.dvy = l.dvz = l.dpx = l.dpy = l.dpz = 0.f;
+    l.ncon = 0;
   }
-  const float m = r * r * r;
 
   // ---- the plan: per group the row's window start, the lane's first
   // candidate (rel, in the window) and its candidate bound ----
   int32_t rel[N_GROUPS], bnd[N_GROUPS], ws[N_GROUPS];
   if (CELLS) {
-    const int32_t c = grid.cid_s[i];
-    const bool live = c < grid.num_cells;
-    const int32_t cs = min(c, grid.num_cells - 1);
-    const int32_t cx = cs / (grid.dy * grid.dz);
-    const int32_t cy = (cs / grid.dz) % grid.dy;
+    const Cell cell = cell_of(grid, grid.cid_s[i]);
     int32_t start[N_GROUPS], cnt[N_GROUPS];
 #pragma unroll
     for (int g = 0; g < N_GROUPS; ++g) {
-      const int ox = g / 3 - 1, oy = g % 3 - 1;
-      const int32_t off = (ox * grid.dy + oy) * grid.dz;
-      // the run table's zero / last padding is a clamp of the index
-      const int32_t st = grid.offsets[min(max(cs + off - 1, 0), grid.num_cells)];
-      const int32_t en = grid.offsets[min(max(cs + off + 2, 0), grid.num_cells)];
-      const bool ok = live && (cx + ox >= 0) && (cx + ox < grid.dx) &&
-                      (cy + oy >= 0) && (cy + oy < grid.dy);
-      start[g] = st;
-      cnt[g] = ok ? en - st : 0;
-      const int32_t mn = __reduce_min_sync(0xffffffffu, cnt[g] > 0 ? st : BIG);
+      full_run(grid, cell, g, start[g], cnt[g]);
+      const int32_t mn = __reduce_min_sync(0xffffffffu, cnt[g] > 0 ? start[g] : BIG);
       if (lane == 0) s_red[0][warp][g] = mn;
     }
     __syncthreads();
@@ -267,10 +367,6 @@ __global__ void __launch_bounds__(LANE, 8) p2p_window_kernel(
     }
     cp_async_commit();
   };
-  float dvx = 0.f, dvy = 0.f, dvz = 0.f;
-  float dpx = 0.f, dpy = 0.f, dpz = 0.f;
-  int32_t ncon = 0;
-
   stage_group(0);
   stage_group(1);
 #pragma unroll
@@ -282,43 +378,45 @@ __global__ void __launch_bounds__(LANE, 8) p2p_window_kernel(
     const float* far = rows_pad + s_src[g];  // the same columns in global memory
     for (int32_t k = 0; k < bnd[g]; ++k) {
       const int32_t col = rel[g] + k;
-      const float dx = px - b[col];
-      const float dy = py - b[w + col];
-      const float dz = pz - b[2 * w + col];
-      const float rj = b[3 * w + col];
-      const float dist2 = dx * dx + dy * dy + dz * dz;
-      const float rsum = r + rj;
-      if ((dist2 < rsum * rsum) && (dist2 > 0.f)) {  // touching
-        const float dist = sqrtf(max_nan(dist2, 1e-30f));
-        const float nx = dx / dist, ny = dy / dist, nz = dz / dist;
-        const float rvx = vx - far[3 * n_pad + col];
-        const float rvy = vy - far[4 * n_pad + col];
-        const float rvz = vz - far[5 * n_pad + col];
-        const float vn = rvx * nx + rvy * ny + rvz * nz;
-        const float ee = 0.5f * (e + far[7 * n_pad + col]);
-        const float mj = rj * rj * rj;
-        const float wgt = mj / (m + mj);
-        const float imp = (vn < 0.f) ? -(1.0f + ee) * vn * wgt : 0.f;
-        const float overlap = rsum - dist;
-        const float push = beta * overlap * wgt;
-        dvx = dvx + nx * imp;
-        dvy = dvy + ny * imp;
-        dvz = dvz + nz * imp;
-        dpx = dpx + nx * push;
-        dpy = dpy + ny * push;
-        dpz = dpz + nz * push;
-        ncon += 1;
-      }
+      add_contact(l, b[col], b[w + col], b[2 * w + col], b[3 * w + col], far + col,
+                  n_pad, beta);
     }
   }
+  store(l, pos_out, vel_out, ncon_out, n, i);
+}
 
-  pos_out[i] = px + dpx;
-  pos_out[n + i] = py + dpy;
-  pos_out[2 * n + i] = pz + dpz;
-  vel_out[i] = vx + dvx;
-  vel_out[n + i] = vy + dvy;
-  vel_out[2 * n + i] = vz + dvz;
-  ncon_out[i] = ncon;
+// The worklist entry point's body: listed lane j of lanes[0 .. *n_lanes)
+// is sorted particle lanes[j], its column of rows [8, pitch] (pos xyz,
+// vel xyz, radius, restitution; the candidates are columns of the same
+// array), its nine full runs from cid_s and the offsets.  One thread a
+// listed lane, grid-stride over the list.
+constexpr int WL_THREADS = 256;
+
+__global__ void __launch_bounds__(WL_THREADS) p2p_worklist_kernel(
+    const float* __restrict__ rows, int64_t pitch, Grid grid,
+    const int32_t* __restrict__ lanes, const int32_t* __restrict__ n_lanes,
+    float* __restrict__ pos_out, float* __restrict__ vel_out,
+    int32_t* __restrict__ ncon_out, int64_t n, float beta) {
+  const int32_t m_lanes = *n_lanes;
+  const int32_t stride = (int32_t)(gridDim.x * blockDim.x);
+  for (int32_t j = (int32_t)(blockIdx.x * blockDim.x + threadIdx.x); j < m_lanes;
+       j += stride) {
+    const int64_t i = lanes[j];
+    Lane l = load_lane(rows, pitch, i);
+    const Cell cell = cell_of(grid, grid.cid_s[i]);
+    for (int g = 0; g < N_GROUPS; ++g) {
+      int32_t start, count;
+      full_run(grid, cell, g, start, count);
+      for (int32_t k = 0; k < count; ++k) {
+        const int64_t q = (int64_t)start + k;
+        if (q == i) continue;  // the self pair, by index
+        const float* col = rows + q;
+        add_contact(l, col[0], col[pitch], col[2 * pitch], col[6 * pitch], col, pitch,
+                    beta);
+      }
+    }
+    store(l, pos_out, vel_out, ncon_out, n, i);
+  }
 }
 
 template <bool CELLS>
@@ -373,4 +471,22 @@ extern "C" int psys_p2p_window_collide_cells(
   const Grid grid = {cid_s, offsets, num_cells, dx, dy, dz};
   return launch<true>(nullptr, nullptr, nullptr, nullptr, rows_pad, n_pad, plan, grid,
                       pos_out, vel_out, ncon_out, ovf_out, n, w, beta, stream);
+}
+
+// The exact redo of listed lanes: lanes i32[n] (sorted indices, listed
+// first), n_lanes i32[] in device memory, rows f32[8, pitch] the sorted
+// rows (candidates are its columns), cid_s/offsets/grid dims as above.
+// Writes pos_out/vel_out [3, n] and ncon_out [n] at the listed lanes only,
+// over `blocks` blocks of 256 threads.  Returns the launch's CUDA error,
+// 0 if none.
+extern "C" int psys_p2p_collide_worklist(
+    const float* rows, int64_t pitch, const int32_t* cid_s, const int32_t* offsets,
+    int32_t num_cells, int32_t dx, int32_t dy, int32_t dz, const int32_t* lanes,
+    const int32_t* n_lanes, float* pos_out, float* vel_out, int32_t* ncon_out, int64_t n,
+    float beta, int32_t blocks, void* stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const Grid grid = {cid_s, offsets, num_cells, dx, dy, dz};
+  p2p_worklist_kernel<<<(unsigned)blocks, WL_THREADS, 0, (cudaStream_t)stream>>>(
+      rows, pitch, grid, lanes, n_lanes, pos_out, vel_out, ncon_out, n, beta);
+  return (int)cudaGetLastError();
 }

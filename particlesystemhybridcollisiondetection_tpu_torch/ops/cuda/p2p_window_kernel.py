@@ -14,6 +14,14 @@ only for tensors on the CPU; for CUDA tensors it launches the kernel (on
 the current stream) or raises.  Each launch adds one to ``LAUNCHES`` under
 the wrapper's name.
 
+``p2p_collide_worklist`` is the kernel's third entry point: the exact
+redo of the lanes whose runs overflowed their windows, over a list of
+lanes compacted on the device (``window_kernel.compact_lanes``) whose
+length it reads from device memory, one thread a listed lane over its
+nine full runs.  It gives the host-looped chunked fallback's bits
+(``ops/p2p_sorted.py::_p2p_chunked_fallback``), which its plain version,
+the same loop over the listed lanes, repeats.
+
 Inputs are the plan of ``ops/p2p_plan.py::window_geometry``: particles
 sorted by cell; for each of the nine (dx, dy) groups every particle's
 candidates are a run of consecutive sorted particles, read from the
@@ -44,6 +52,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
     _check,
     _ptr,
     _raise_on,
+    _sm_count,
     _stream,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as plan
@@ -52,7 +61,12 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p import pair_contac
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_plan import N_GROUPS
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"p2p_window_collide_sorted": 0, "p2p_window_collide_cells": 0}
+LAUNCHES = {"p2p_window_collide_sorted": 0, "p2p_window_collide_cells": 0,
+            "p2p_collide_worklist": 0}
+
+# blocks per SM of the worklist entry point (256 threads, one listed lane
+# each); the grid does not depend on the list's length
+_WORKLIST_BLOCKS_PER_SM = 8
 
 # The kernel stages three [4][w] float buffers in shared memory (an SM has
 # 227 KB for a block); above this window it cannot launch
@@ -235,3 +249,92 @@ def p2p_window_collide_cells(
     _raise_on(err, "p2p_window_collide_cells")
     LAUNCHES["p2p_window_collide_cells"] += 1
     return pos_o, vel_o, ncon_o, ovf_o
+
+
+def p2p_collide_worklist_plain(rows_s, cid_s, offsets, meta: pg.PGridMeta, lanes,
+                               n_lanes, pos_k, vel_k, ncon_k, *, beta: float):
+    """Plain PyTorch version of the worklist entry point: the listed lanes
+    as one chunk of the host-looped fallback (their full runs from
+    ``ops/p2p_plan.py``, one column gather per candidate k up to the
+    longest run, invalid candidates masked).  Reads ``n_lanes`` and each
+    group's longest run on the host."""
+    m = int(n_lanes)
+    if m == 0:
+        return
+    n = rows_s.shape[-1]
+    pick = lanes[:m].long()
+    starts, cnt = plan.run_bounds(cid_s[pick], plan.run_table(offsets, meta), meta)
+    p_i, v_i = rows_s[0:3, pick], rows_s[3:6, pick]
+    r_i, e_i = rows_s[6, pick], rows_s[7, pick]
+    m_i = r_i * r_i * r_i
+    dv = torch.zeros_like(v_i)
+    dp = torch.zeros_like(p_i)
+    ncon = torch.zeros((m,), dtype=torch.int32, device=rows_s.device)
+    for g in range(N_GROUPS):
+        for k in range(int(cnt[g].max())):
+            idx = torch.clamp(starts[g] + k, 0, n - 1)
+            cand = rows_s[:, idx]
+            rj = cand[6]
+            ddv, ddp, touching = pair_contact(
+                p_i, v_i, r_i, e_i, m_i,
+                cand[0:3], cand[3:6], rj, cand[7], rj * rj * rj,
+                (k < cnt[g]) & (idx != pick), beta,
+            )
+            dv = dv + ddv
+            dp = dp + ddp
+            ncon = ncon + touching.to(torch.int32)
+    pos_k[:, pick] = p_i + dp
+    vel_k[:, pick] = v_i + dv
+    ncon_k[pick] = ncon
+
+
+def p2p_collide_worklist(
+    rows_s,  # f32[8, N] sorted rows: pos3 vel3 radius restitution
+    cid_s,  # i32[N] sorted linear cell ids, parked particles = num_cells
+    offsets,  # i32[num_cells + 2] CSR offsets over cells (csr_offsets)
+    meta: pg.PGridMeta,
+    lanes,  # i32[N] listed lanes first (sorted indices)
+    n_lanes,  # i32[] how many are listed, on the device
+    pos_k,  # f32[3, N], written at the listed lanes
+    vel_k,
+    ncon_k,  # i32[N]
+    *,
+    beta: float,
+):
+    """Exact contact pass of the first ``n_lanes`` lanes of ``lanes`` over
+    their nine full runs (no window), written in place into ``pos_k``,
+    ``vel_k`` and ``ncon_k`` (other lanes untouched).  One launch whose
+    grid does not depend on the list, so its length never leaves the
+    device."""
+    n = cid_s.shape[0]
+    if rows_s.device.type == "cpu":
+        return p2p_collide_worklist_plain(rows_s, cid_s, offsets, meta, lanes,
+                                          n_lanes, pos_k, vel_k, ncon_k, beta=beta)
+    dev = rows_s.device
+    for name, t, dt_, shape in (
+        ("rows_s", rows_s, torch.float32, (8, n)),
+        ("cid_s", cid_s, torch.int32, (n,)),
+        ("offsets", offsets, torch.int32, (meta.num_cells + 2,)),
+        ("lanes", lanes, torch.int32, (n,)),
+        ("n_lanes", n_lanes, torch.int32, ()),
+        ("pos_k", pos_k, torch.float32, (3, n)),
+        ("vel_k", vel_k, torch.float32, (3, n)),
+        ("ncon_k", ncon_k, torch.int32, (n,)),
+    ):
+        _check(name, t, dt_, shape, dev)
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+
+    c = ctypes
+    fn = build.kernel_function(
+        "p2p_window_kernel", "psys_p2p_collide_worklist", [
+            c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p, *([c.c_int32] * 4),
+            *([c.c_void_p] * 5), c.c_int64, c.c_float, c.c_int32, c.c_void_p,
+        ])
+    err = fn(
+        _ptr(rows_s), n, _ptr(cid_s), _ptr(offsets), int(meta.num_cells),
+        *(int(d) for d in meta.dims), _ptr(lanes), _ptr(n_lanes), _ptr(pos_k),
+        _ptr(vel_k), _ptr(ncon_k), n, float(np.float32(beta)),
+        _WORKLIST_BLOCKS_PER_SM * _sm_count(dev), _stream(dev),
+    )
+    _raise_on(err, "p2p_collide_worklist")
+    LAUNCHES["p2p_collide_worklist"] += 1

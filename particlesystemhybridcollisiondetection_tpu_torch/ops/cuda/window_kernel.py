@@ -10,7 +10,8 @@ kernels, now hand-written CUDA (``csrc/``):
     exact narrow phase over each particle's candidate rows, the response
     and the integrator, fused;
   * ``window_collide_worklist``: a second entry point of B1 for rescue
-    phase 2, over a list of lanes compacted on the device, each alone.
+    phase 2, over a list of lanes compacted on the device
+    (``compact_lanes``), each alone.
 
 Each wrapper has its plain PyTorch version beside it (``*_plain``).  A
 wrapper runs the plain version only for tensors on the CPU; for CUDA
@@ -563,6 +564,19 @@ def window_collide_sorted(
     _raise_on(err, "window_collide_sorted")
     LAUNCHES[launch_key] += 1
     return pos_o, vel_o, hit_o
+
+
+def compact_lanes(take):
+    """The lanes where ``take`` holds, in lane order, compacted on the
+    device (cumsum and scatter, no host read): (lanes i32[N], their
+    count i32[]); entries past the count are 0.  The list that the
+    worklist entry points (this module's and the p2p kernel's) take."""
+    n = take.shape[0]
+    t = take.to(torch.int32)
+    slot = torch.where(take, torch.cumsum(t, 0) - 1, n).long()
+    lanes = torch.zeros((n + 1,), dtype=torch.int32, device=take.device)
+    lanes.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=take.device))
+    return lanes[:n], t.sum(dtype=torch.int32)
 
 
 def window_collide_worklist_plain(

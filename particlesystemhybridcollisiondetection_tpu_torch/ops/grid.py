@@ -25,7 +25,10 @@ import numpy as np
 import torch
 
 from particlesystemhybridcollisiondetection_tpu_torch.config import GridConfig
-from particlesystemhybridcollisiondetection_tpu_torch.core.state import resolve_device
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+    device_constant,
+    resolve_device,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,21 +253,9 @@ def lookup_pos(pos: torch.Tensor, vel: torch.Tensor, dt: float) -> torch.Tensor:
     return pos + vel * (dt * 0.5)
 
 
-_origins: dict = {}
-
-
-def _origin(meta: GridMeta, pos: torch.Tensor) -> torch.Tensor:
-    """The grid origin as a tensor on ``pos``'s device, made once: a
-    host-to-device copy cannot be captured in a CUDA graph."""
-    k = (meta.origin, pos.dtype, pos.device)
-    if k not in _origins:
-        _origins[k] = torch.tensor(meta.origin, dtype=pos.dtype, device=pos.device)
-    return _origins[k]
-
-
 def cell_coords(pos: torch.Tensor, meta: GridMeta):
     """(cx, cy, cz) i32[N] clamped cell coordinates for positions [3, N]."""
-    origin = _origin(meta, pos)
+    origin = device_constant(meta.origin, pos.dtype, pos.device)
     inv_h = 1.0 / meta.cell_size
     dims = meta.dims
     # floor + clip per axis; sentinel positions (1e38) clamp to the border

@@ -26,7 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from particlesystemhybridcollisiondetection_tpu_torch.core.state import ParticleState
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+    ParticleState,
+    device_constant,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
 
 
@@ -159,8 +162,8 @@ def box_walls_collide(
     integrator (``- g*dt``), position clamped to the wall surface.
     """
     pos, velo = state.pos, state.vel
-    lo = torch.as_tensor(lo, dtype=pos.dtype, device=pos.device)
-    hi = torch.as_tensor(hi, dtype=pos.dtype, device=pos.device)
+    lo, hi = (b if isinstance(b, torch.Tensor) else
+              device_constant(b, pos.dtype, pos.device) for b in (lo, hi))
     r = state.radius
     e = state.restitution
 

@@ -7,7 +7,7 @@ builds its paths from them, and the plain version of the window kernel's
 second entry point (``ops/cuda/p2p_window_kernel.py``) is their
 composition: on the card that kernel derives the same plan itself.
 
-  * ``csr_offsets``: histogram + cumsum over cells;
+  * ``csr_offsets``: histogram (integer scatter-add) + cumsum over cells;
   * ``run_table`` / ``run_bounds``: for each (dx, dy) in {-1,0,1}^2 the
     three z-neighbours are consecutive linear cells, so a group's
     candidates are one [start, end) interval of sorted particle indices;
@@ -37,10 +37,15 @@ def group_offsets(meta: pg.PGridMeta):
 
 def csr_offsets(cid_key: torch.Tensor, num_cells: int) -> torch.Tensor:
     """i32[C+2] CSR offsets over cells plus the parked pseudo-cell C;
-    offsets[C] = number of active particles."""
-    counts = torch.bincount(cid_key, minlength=num_cells + 1)
-    zero = torch.zeros((1,), dtype=torch.int32, device=cid_key.device)
-    return torch.cat([zero, torch.cumsum(counts, 0).to(torch.int32)])
+    offsets[C] = number of active particles.  ``cid_key`` (in any order)
+    holds ids in [0, C].  An integer scatter-add and a cumsum: no host
+    read (``torch.bincount`` reads the maximum on CUDA), so a captured
+    step can hold it."""
+    offsets = torch.zeros((num_cells + 2,), dtype=torch.int32,
+                          device=cid_key.device)
+    ones = torch.ones(cid_key.shape, dtype=torch.int32, device=cid_key.device)
+    offsets[1:].scatter_add_(0, cid_key.long(), ones)
+    return torch.cumsum(offsets, 0, dtype=torch.int32)
 
 
 def run_table(offsets: torch.Tensor, meta: pg.PGridMeta) -> torch.Tensor:

@@ -38,8 +38,15 @@ Correctness of the run construction:
     of j's: both sides apply mirrored impulses.
 
 Where the JAX package loops and branches on the device (``while_loop``,
-``cond``), this eager port reads the loop bound back to the host; pass a
-``HostSyncs`` (``core/step.py``) as ``syncs`` to count those reads.
+``cond``), the window path sizes its work on the device too: the exact
+redo of the lanes that overflowed their windows (``_p2p_device_fallback``)
+is one launch of the window kernel's worklist entry point over a list
+compacted on the device, and ``p2p_collide_window`` reads nothing back,
+so a step can be captured as a CUDA graph.  ``p2p_collide_sorted`` and
+``_p2p_chunked_fallback`` (the host-looped fallback, kept as the
+reference the tests and ``chip_smoke.py`` hold the device route to)
+read their loop bounds back to the host; pass a ``HostSyncs``
+(``core/step.py``) as ``syncs`` to count those reads.
 """
 
 from __future__ import annotations
@@ -54,7 +61,11 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as pla
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.p2p_window_kernel import (
     BLOCK,
     N_GROUPS,
+    p2p_collide_worklist,
     p2p_window_collide_cells,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
+    compact_lanes,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p import pair_contact
 
@@ -179,8 +190,9 @@ def _unsort(state: ParticleState, pos_k, vel_k, ncon_k, perm) -> ParticleState:
 class WindowParts(NamedTuple):
     """What phase 1 hands to phase 2, in sorted order and padded to the
     kernel's block multiple.  The [9, N] run bounds are not among them:
-    the kernel derives its plan itself, and ``run_bounds`` rebuilds them
-    for the fallback when a window overflowed."""
+    the kernel and its worklist entry point derive the runs themselves,
+    and ``run_bounds`` rebuilds them for the host-looped reference
+    fallback when a window overflowed."""
 
     pos_k: torch.Tensor  # f32[3, n_k] kernel results
     vel_k: torch.Tensor
@@ -270,12 +282,14 @@ def p2p_window_phase2(
     *,
     beta: float = 0.5,
     fallback_capacity: int = 8192,
-    syncs=None,
-) -> tuple[ParticleState, int]:
-    """Chunked exact redo of the overflow lanes + unsort back to the
-    caller's order.  Returns (new_state, n_over), n_over a host int."""
-    pos_k, vel_k, ncon_k, n_over = _p2p_chunked_fallback(
-        parts, beta, fallback_capacity, syncs)
+) -> tuple[ParticleState, torch.Tensor]:
+    """Exact redo of the overflow lanes (``_p2p_device_fallback``) +
+    unsort back to the caller's order; no host read.  Returns (new_state,
+    n_over), n_over an i32 device scalar.  ``fallback_capacity`` is the
+    chunk size of the host-looped reference fallback
+    (``_p2p_chunked_fallback``), which this route replaces: the device
+    route has no chunks."""
+    pos_k, vel_k, ncon_k, n_over = _p2p_device_fallback(parts, beta)
     return _unsort(state, pos_k, vel_k, ncon_k, parts.perm), n_over
 
 
@@ -287,26 +301,44 @@ def p2p_collide_window(
     active=None,
     window: int = 512,
     fallback_capacity: int = 8192,
-    syncs=None,
-) -> tuple[ParticleState, int]:
+) -> tuple[ParticleState, torch.Tensor]:
     """Exact particle-particle collision pass via the 9-run window kernel
-    (the "kernel" variant).
+    (the "kernel" variant), with no host read.
 
     Drop-in for p2p_collide_sorted; returns (new_state, window_overflow)
-    where window_overflow (a host int) counts the particles redone
-    exactly by the chunked fallback: results are exact for ANY overflow
-    count.
+    where window_overflow (an i32 device scalar, as in the JAX package)
+    counts the particles redone exactly by the fallback: results are
+    exact for ANY overflow count.  ``fallback_capacity``: see
+    ``p2p_window_phase2``.
     """
     parts = p2p_window_phase1(state, meta, beta=beta, active=active,
                               window=window)
     return p2p_window_phase2(state, parts, beta=beta,
-                             fallback_capacity=fallback_capacity, syncs=syncs)
+                             fallback_capacity=fallback_capacity)
+
+
+def _p2p_device_fallback(parts: WindowParts, beta: float):
+    """Exact redo for window-overflow particles, sized on the device: the
+    overflow lanes compacted (cumsum and scatter) and one launch of the
+    worklist entry point over them, each lane's nine full runs with no
+    window.  Gives ``_p2p_chunked_fallback``'s bits.  Writes into the
+    kernel's results in place and returns (pos_k, vel_k, ncon_k, n_over),
+    n_over an i32 device scalar.  Sentinel and pad lanes park in cell C,
+    have no runs and never overflow, so they are never listed."""
+    lanes, n_over = compact_lanes(parts.overflow)
+    p2p_collide_worklist(parts.rows_s, parts.cid_s, parts.offsets, parts.meta,
+                         lanes, n_over, parts.pos_k, parts.vel_k, parts.ncon_k,
+                         beta=beta)
+    return parts.pos_k, parts.vel_k, parts.ncon_k, n_over
 
 
 def _p2p_chunked_fallback(parts: WindowParts, beta: float,
                           fallback_capacity: int, syncs=None):
     """Exact redo for window-overflow particles, in chunks of at most
-    ``fallback_capacity`` lanes.
+    ``fallback_capacity`` lanes, looped on the host: the reference that
+    the tests and ``chip_smoke.py`` hold ``_p2p_device_fallback`` to
+    (the JAX package's ``_p2p_chunked_fallback``, with its device loops
+    read back to the host).
 
     Walks the compacted overflow list; each chunk recomputes its
     particles' impulses from the FULL run bounds (no window clipping)

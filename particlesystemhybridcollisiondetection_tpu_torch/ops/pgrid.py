@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.core.state import device_constant
+
 
 @dataclasses.dataclass(frozen=True)
 class PGridMeta:
@@ -62,7 +64,7 @@ def cell_coords(pos: torch.Tensor, meta: PGridMeta):
     """[3, N] positions -> clamped integer cell coords (cx, cy, cz).
     The floored float is clamped before the cast, so sentinel positions
     (1e38) land in the last cell instead of overflowing int32."""
-    origin = torch.tensor(meta.origin, dtype=pos.dtype, device=pos.device)
+    origin = device_constant(meta.origin, pos.dtype, pos.device)
     c = torch.floor((pos - origin[:, None]) * (1.0 / meta.cell_size))
     cx = torch.clamp(c[0], 0, meta.dims[0] - 1).to(torch.int32)
     cy = torch.clamp(c[1], 0, meta.dims[1] - 1).to(torch.int32)

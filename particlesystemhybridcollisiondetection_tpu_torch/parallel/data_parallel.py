@@ -15,7 +15,9 @@ A step runs no collective of its own.  The collectives are the readout
 ``with_stats``, once per step, and the overflows of a persistent runner's
 call, once per call.  The one per-step collective on the hot path is the
 persistent runner's under ``resort_every="auto"``, which decides each
-re-sort from the overflow summed over the ranks.  Spatial domain
+re-sort from the overflow summed over the ranks: ``all_sum`` of a device
+scalar, inside the runner's captured step where the backend is NCCL, so
+the host reads only the flag derived from the sum.  Spatial domain
 decomposition with a halo exchange between neighbour ranks (for
 particle-particle interaction at scale) lives in parallel/domain.py.
 

@@ -147,7 +147,7 @@ def test_worklist_plain_matches_one_lane_per_row(fast, dense_probe):
     sp, st, out, overflow, _, _ = _sorted_inputs(fast.triangles, cfg, probe,
                                                  SMALL_WINDOW)
     start, count, fit = tstep._phase2_plan(st, sp)
-    lanes, n_lanes = tstep._worklist(overflow & fit)
+    lanes, n_lanes = twk.compact_lanes(overflow & fit)
     m = int(n_lanes)
     pick = lanes[:m].long()
     assert m > 8 and bool((overflow & fit)[pick].all())
@@ -299,7 +299,7 @@ def test_captured_runner_matches_eager_on_card(fast, dense_probe):
     dev_args = [x.cuda() for x in st]
     sp_c = sp._replace(tables=twk.WindowTables(*(t.cuda() for t in sp.tables)))
     start, count, fit = tstep._phase2_plan(tuple(dev_args), sp_c)
-    lanes, n_lanes = tstep._worklist(overflow.cuda() & fit)
+    lanes, n_lanes = twk.compact_lanes(overflow.cuda() & fit)
     kw = dict(w=sp.rescue_window, k_static=sp.meta.max_tris_per_cell,
               gravity=cfg_p.gravity, dt=cfg_p.dt, backoff=cfg_p.backoff)
     res = []

@@ -238,8 +238,10 @@ def test_phase1_on_cells_entry_matches_jax(case):
 
 
 def test_fallback_builds_run_bounds_only_on_overflow(monkeypatch):
-    """Without overflow phase 2 never asks for the [9, N] run bounds;
-    with overflow it rebuilds them and redoes those lanes exactly."""
+    """Phase 2 never asks for the [9, N] run bounds: its device-sized
+    fallback derives each listed lane's runs in the worklist entry point,
+    and redoes the overflow lanes exactly.  The host-looped reference
+    fallback rebuilds them only when a lane overflowed."""
     calls = []
     real = tp2ps.WindowParts.run_bounds
     monkeypatch.setattr(tp2ps.WindowParts, "run_bounds",
@@ -249,7 +251,12 @@ def test_fallback_builds_run_bounds_only_on_overflow(monkeypatch):
     out, n_over = tp2ps.p2p_collide_window(c["ts"], c["tm"], active=act, window=512)
     assert n_over == 0 and not calls
     out128, n_over = tp2ps.p2p_collide_window(c["ts"], c["tm"], active=act, window=128)
-    assert n_over > 0 and len(calls) == 1
+    assert n_over > 0 and not calls
+    for w, want in ((512, 0), (128, 1)):
+        calls.clear()
+        parts = tp2ps.p2p_window_phase1(c["ts"], c["tm"], active=act, window=w)
+        tp2ps._p2p_chunked_fallback(parts, 0.5, 8192)
+        assert len(calls) == want, w
     np.testing.assert_array_equal(out128.collisions.numpy(), out.collisions.numpy())
     np.testing.assert_allclose(out128.pos.numpy(), out.pos.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(out128.vel.numpy(), out.vel.numpy(), rtol=1e-4, atol=1e-5)

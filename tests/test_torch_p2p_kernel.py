@@ -100,8 +100,10 @@ def test_source_is_registered_and_named():
     text = open(src).read()
     assert 'extern "C" int psys_p2p_window_collide(' in text
     assert 'extern "C" int psys_p2p_window_collide_cells(' in text
+    assert 'extern "C" int psys_p2p_collide_worklist(' in text
     assert tk.LAUNCHES == {"p2p_window_collide_sorted": 0,
-                           "p2p_window_collide_cells": 0}
+                           "p2p_window_collide_cells": 0,
+                           "p2p_collide_worklist": 0}
     assert tk.N_GROUPS == 9 and (tk.SUB, tk.LANE, tk.BLOCK) == (8, 128, 1024)
 
 

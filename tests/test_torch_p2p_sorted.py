@@ -189,22 +189,33 @@ def test_sorted_matches_jax_and_oracle(case):
 @pytest.mark.parametrize("window", [512, 128])
 def test_window_matches_jax_and_oracle(window):
     """Default window: nothing overflows.  window=128: the spread of runs
-    in one block overflows it, and the chunked fallback (here in chunks
-    of 64 lanes, the last one clamped) redoes those particles exactly."""
+    in one block overflows it, and the device-sized fallback redoes those
+    particles exactly, as the host-looped reference fallback (here in
+    chunks of 64 lanes, the last one clamped) does bit for bit, with its
+    host reads."""
     cloud = hetero_cloud(10, n=192)
     oracle = brute_force_p2p(*cloud)
     jm, tm = metas(((0, 0, 0), (8, 8, 8), 0.6, 16))
     js, ts = both(snap(*cloud))
     jo, j_over = jp2ps.p2p_collide_window(js, jm, window=window, interpret=True)
-    syncs = HostSyncs()
-    to, t_over = tp2ps.p2p_collide_window(ts, tm, window=window, syncs=syncs,
+    to, t_over = tp2ps.p2p_collide_window(ts, tm, window=window,
                                           fallback_capacity=64)
-    assert isinstance(t_over, int) and t_over == int(j_over)
-    assert (t_over > 0) == (window == 128)
+    # an i32 device scalar, as the JAX package's
+    assert t_over.dtype == torch.int32 and t_over.dim() == 0
+    n_over = int(t_over)
+    assert n_over == int(j_over)
+    assert (n_over > 0) == (window == 128)
+    syncs = HostSyncs()
+    parts = tp2ps.p2p_window_phase1(ts, tm, window=window)
+    *ref, ref_over = tp2ps._p2p_chunked_fallback(parts, 0.5, 64, syncs)
+    assert ref_over == n_over
     if window == 512:
         assert syncs.count == 1  # the overflow count, nothing else
     else:
-        assert t_over % 64 != 0 and syncs.count == 1 + 9 * (t_over // 64 + 1)
+        assert n_over % 64 != 0 and syncs.count == 1 + 9 * (n_over // 64 + 1)
+    ref = tp2ps._unsort(ts, *ref, parts.perm)
+    for f in ("pos", "vel", "collisions"):
+        assert torch.equal(getattr(to, f), getattr(ref, f)), f
     assert_states_close(to, jo)
     assert_matches_oracle(to, *oracle)
 
@@ -282,7 +293,7 @@ def test_episode_runner_matches_jax_runner_and_step_path():
     run = make_p2p_episode_runner(*box, SimConfig(**kw), device="cpu")
     to, overflows = run(ts, 4, with_stats=True)
     assert overflows == [0, 0, 0, 0]
-    assert run.steps == 4 and run.syncs.count == 4  # one read per step
+    assert run.steps == 4 and run.syncs.count == 0  # the fallback is sized on the device
     tol = dict(pos_tol=dict(rtol=1e-4, atol=1e-4), vel_tol=dict(rtol=1e-3, atol=1e-4))
     assert_states_close(to, jo, **tol)
     assert int(to.collisions.sum()) > 0 and to.pos.shape == (3, n)
@@ -302,21 +313,29 @@ def test_episode_runner_matches_jax_runner_and_step_path():
 
 def test_fallback_redoes_every_lane_with_clamped_last_chunk():
     """Mark EVERY lane as overflowed and throw the kernel's output away:
-    the chunked fallback alone (chunks of 400 over 1024 lanes, the third
-    chunk's start clamped to 624, overlapping the second) must rebuild
-    the result of the sorted path."""
+    the host-looped fallback alone (chunks of 400 over 1024 lanes, the
+    third chunk's start clamped to 624, overlapping the second) must
+    rebuild the result of the sorted path, and the device-sized fallback
+    of phase 2 (one list of 1024 lanes) its bits."""
     cloud = hetero_cloud(10, n=192)
     tm = tpg.make_meta((0, 0, 0), (8, 8, 8), 0.6, capacity=16)
     _, ts = both(snap(*cloud))
     parts = tp2ps.p2p_window_phase1(ts, tm)
     assert parts.rows_s.shape[-1] == 1024 and not parts.overflow.any()
+
+    def junk():
+        return parts._replace(
+            pos_k=torch.full_like(parts.pos_k, 7.0),
+            vel_k=torch.full_like(parts.vel_k, 7.0),
+            ncon_k=torch.full_like(parts.ncon_k, 7),
+            overflow=torch.ones_like(parts.overflow))
+
     syncs = HostSyncs()
-    parts = parts._replace(
-        pos_k=torch.full_like(parts.pos_k, 7.0),
-        vel_k=torch.full_like(parts.vel_k, 7.0),
-        ncon_k=torch.full_like(parts.ncon_k, 7),
-        overflow=torch.ones_like(parts.overflow))
-    out, n_over = tp2ps.p2p_window_phase2(ts, parts, fallback_capacity=400,
-                                          syncs=syncs)
-    assert n_over == 1024 and syncs.count == 1 + 9 * 3
-    assert_matches_oracle(out, *brute_force_p2p(*cloud))
+    *ref, n_ref = tp2ps._p2p_chunked_fallback(junk(), 0.5, 400, syncs)
+    assert n_ref == 1024 and syncs.count == 1 + 9 * 3
+    ref = tp2ps._unsort(ts, *ref, parts.perm)
+    assert_matches_oracle(ref, *brute_force_p2p(*cloud))
+    out, n_over = tp2ps.p2p_window_phase2(ts, junk(), fallback_capacity=400)
+    assert int(n_over) == 1024
+    for f in ("pos", "vel", "collisions"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f

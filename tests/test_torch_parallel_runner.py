@@ -58,6 +58,22 @@ def _runner_rank(rank, world, in_path, out_path, steps):
         _save(out_path, **out)
 
 
+def _auto_world1_rank(rank, world, in_path, out_path, steps):
+    """The persistent runner with mesh= under "auto" (threshold 0) on a
+    one-rank mesh: its state, its per-step overflows (summed over the
+    mesh on the device) and its host reads."""
+    scene = _fast_scene()
+    mesh = dp.make_mesh(device_type="cpu")
+    local = dp.shard_state(_state(dict(np.load(in_path))), mesh)
+    runner = tstep.make_sorted_episode_runner(
+        scene.triangles, scene.config, mesh=mesh, device="cpu",
+        resort_every="auto", resort_threshold=0)
+    r, ovf = runner(local, steps, with_stats=True)
+    g = snapshot(dp.gather_state(r, mesh))
+    _save(out_path, **{f: g[f] for f in ("pos", "vel", "collisions")},
+          ovf=np.asarray(ovf), syncs=np.asarray(runner.syncs.count),
+          graphed=np.asarray(runner.graphed))
+
 
 RUNNER_STEPS = 11  # from step 36: the overflow rises at steps 37 and 43
 
@@ -136,3 +152,24 @@ def test_persistent_runner_sharded_matches_single_device(tmp_path, scene, warm36
         assert ovf == want.tolist(), tag
         assert max(ovf) > 0, tag
     assert runner_ref["spatial"]["collisions"].sum() > 0
+
+
+def test_persistent_runner_world1_auto_sums_on_device(tmp_path, scene, warm36,
+                                                      runner_ref):
+    """mesh= at world 1 (gloo on the CPU) under "auto": the overflow is
+    summed over the mesh on the device and the host reads only the
+    re-sort flag, one a step after the first (the host-summed runner read
+    the overflow and summed it on the host every step).  Its per-step
+    overflows are those of the single-device runner on the same slice
+    (the sum over one rank), its state the single-device runner's bit for
+    bit, and both re-sort branches run.  CPU ranks step eagerly."""
+    out = _spawn(tmp_path, _auto_world1_rank, 1, warm36, RUNNER_STEPS)
+    _assert_bitwise(out, runner_ref["auto"], "auto, world 1")
+    single = tstep.make_sorted_episode_runner(
+        scene.triangles, scene.config, device="cpu", **_runner_kw(scene, "auto"))
+    want = single(_state(warm36), RUNNER_STEPS, with_stats=True)[1]
+    ovf = out["ovf"].tolist()
+    assert ovf == want and max(ovf) > 0
+    assert 1 < len(_auto_resorts(ovf)) < RUNNER_STEPS
+    assert int(out["syncs"]) == RUNNER_STEPS - 1 == single.syncs.count
+    assert not bool(out["graphed"])
