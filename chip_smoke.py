@@ -7,7 +7,9 @@ On a host with several cards phase 9 adds a run over NCCL across them.
 
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
-     versions, and build the three CUDA sources of ops/cuda/csrc; bake
+     versions, and build the three CUDA sources of ops/cuda/csrc (ptxas
+     usage by kernel; the worklist collide kernel's occupancy and its
+     instructions per candidate from the SASS, ``sass_counts``); bake
      DragonScene's four cameras (1920 x 1080, corner normals) on the host
      into the disk cache, one spawned worker process per camera not yet
      there (``prebake``), for phases 5, 8 and 10;
@@ -25,7 +27,8 @@ Phases (each raises on failure; nothing is caught and passed over):
      its kernels against its plain PyTorch version at the main path's
      shapes (cells lookup; window kernel at the main window and on the
      rescue's phase-1 launch over the full Morton-compacted order; the
-     worklist entry point on the lanes phase 2 takes, every lane), and
+     worklist entry point on the lanes phase 2 takes, every lane, and at
+     step 650 with no lane listed), and
      the window kernel on a chunk of 8,192 lanes of the phase-1 order,
      which splits each row over several blocks (``row_split``, as every
      launch with fewer rows than two per SM: the k = 0 rung, the
@@ -218,6 +221,87 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _demangle(mangled: str) -> str:
+    """The kernel's name in a mangled symbol of the csrc sources (an
+    anonymous namespace, then the name; a bool template argument as <0>
+    or <1>)."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    tail = rest[m.end() + int(m.group(1)):]
+    t = re.match(r"ILb(\d)E", tail)
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel, "registers, spills, shared memory") of each entry function
+    in an nvcc build's ``-Xptxas -v`` report."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = _demangle(line.split("'")[1])
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            kernel = None
+    return out
+
+
+# SASS opcodes that run on the FP32 and special-function pipes
+SASS_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET", "MUFU"}
+
+
+def sass_counts(build) -> dict:
+    """Instructions per candidate of the worklist collide kernel, from the
+    built library's SASS (``cuobjdump -sass``): the body of the innermost
+    loop that holds special-function (MUFU) instructions -- the walk over
+    the items, one candidate an iteration -- counted statically: FP32
+    and MUFU instructions, MUFU alone, and all.  The IEEE division and
+    square root slow paths are subroutines outside the loop (their call
+    sites count among "all").  {} when cuobjdump is missing."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("cuobjdump not found: SASS not counted", file=sys.stderr)
+        return {}
+    sass = subprocess.run([tool, "-sass", build._paths("window_kernel")[1]],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    for body in sass.split("Function : ")[1:]:
+        if _demangle(body.split()[0]) != "worklist_collide_kernel":
+            continue
+        ins = []
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+                ins.append((int(m.group(1), 16), text.split()[0].split(".")[0], text))
+        loops = []
+        for addr, op, text in ins:
+            target = text.split()[-1]
+            if op == "BRA" and target.startswith("0x") and int(target, 16) < addr:
+                loop = [x[1] for x in ins if int(target, 16) <= x[0] <= addr]
+                if "MUFU" in loop:
+                    loops.append(loop)
+        loop = min(loops, key=len)
+        counts = {"fp32": sum(op in SASS_FP32 for op in loop),
+                  "mufu": loop.count("MUFU"), "all": len(loop)}
+        print(f"  SASS worklist_collide_kernel, per candidate (its loop over "
+              f"items, static): {counts['fp32']} FP32 instructions "
+              f"({counts['mufu']} MUFU) of {counts['all']}; "
+              f"WINDOW_OPS_PER_CANDIDATE = {WINDOW_OPS_PER_CANDIDATE}")
+        return counts
+    raise RuntimeError("worklist_collide_kernel is not in the window kernel's SASS")
+
+
 def median_ms(torch, fn) -> float:
     fn()  # warm
     times = []
@@ -283,18 +367,20 @@ def timed(torch, fn, plain_fn) -> dict:
             "by_kernel": (rows, counts)}
 
 
+def short_kernel(key: str) -> str:
+    """A kernel's name in the profiler's table without its signature."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0][-32:]
+
+
 def by_kernel(rows_counts) -> str:
     """'name ms (launches in the trace of REPS calls)' of the kernels of
     one call, longest first."""
     rows, counts = rows_counts
-
-    def short(key):
-        key = key.replace("void ", "").replace("(anonymous namespace)::", "")
-        return key.split("(")[0].split("<")[0][-32:]
     if not rows:
         return "no kernel times"
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:4]
-    return ", ".join(f"{short(k)} {v:.4f} ({counts[k]}/{REPS})" for k, v in top)
+    return ", ".join(f"{short_kernel(k)} {v:.4f} ({counts[k]}/{REPS})" for k, v in top)
 
 
 def check_runner_launches(tag: str, launches: dict, steps: int) -> None:
@@ -504,9 +590,11 @@ def worklist_vs_plain(torch, sp, wl_args) -> dict:
 
 def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
     """The worklist entry point (rescue phase 2) on the lanes that phase 2
-    takes in ``wl_args`` (``sorted_plan``'s): candidate spread, agreement
-    with its plain version on every lane (raises on any difference),
-    times and bound.  Returns its kernel-table numbers."""
+    takes in ``wl_args`` (``sorted_plan``'s): candidate spread and the
+    kernels' schedule (``worklist_schedule``), agreement with its plain
+    version on every lane (raises on any difference), times (each
+    kernel's device time apart) and bound.  Returns its kernel-table
+    numbers."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
@@ -518,9 +606,17 @@ def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
     pick = lanes[:m].long()
     bound = torch.clamp(count[pick], 0, sp.meta.max_tris_per_cell)
     n_cand = int(bound.sum())
+    blocks = wk.worklist_occupancy(start.device)[0] \
+        * torch.cuda.get_device_properties(0).multi_processor_count
+    sched = wk.worklist_schedule(count, lanes, n_lanes,
+                                 k_static=sp.meta.max_tris_per_cell, blocks=blocks)
+    share = sched.edges.diff()
     print(f"[{card}] worklist {tag}: {m} listed lanes of {lanes.numel()}; "
           f"candidates per lane max {int(bound.max()) if m else 0}, mean "
-          f"{float(bound.float().mean()) if m else 0.0:.2f}; total {n_cand}")
+          f"{float(bound.float().mean()) if m else 0.0:.2f}; total {n_cand}; "
+          f"schedule: {blocks} collide blocks, {int(sched.edges[-1])} items, "
+          f"{int(share.max())} a share, {int((sched.slot >= 0).sum())} lanes across "
+          "shares")
     c = worklist_vs_plain(torch, sp, wl_args)
     print(f"[{card}] worklist {tag} vs plain: {c['bits']} lanes differ in any bit, "
           f"max |diff| {c['err']:.3e}, hits {c['hits']}")
@@ -539,6 +635,7 @@ def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
     n_ops = WINDOW_OPS_PER_CANDIDATE * n_cand + WINDOW_OPS_PER_LANE * m
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
     ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
+    rows, _ = t["by_kernel"]
     print(f"[{card}] worklist {tag}: {t['ms']:.4f} ms by events around the call, "
           f"{ms_text(t['device_ms'])} on the device "
           f"({by_kernel(t.pop('by_kernel'))}); plain {t['plain_ms']:.4f} ms; bound "
@@ -546,7 +643,13 @@ def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
           f"rows, {n_bytes} B = {bytes_ms:.4f} ms, {n_ops:.3e} ops = {ops_ms:.4f} ms)")
     return {"max_abs_err": c["err"], **t, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "device_ms_by_kernel": {short_kernel(k): v for k, v in rows.items()},
             "listed_lanes": m, "candidates": n_cand}
+
+
+def empty_list(wl_args):
+    """``sorted_plan``'s worklist arguments with no lane listed."""
+    return (*wl_args[:7], wl_args[7] * 0, *wl_args[8:])
 
 
 def b2_case(torch, card: str, tag: str, b2_args) -> dict:
@@ -2027,29 +2130,33 @@ def drive_protocol(torch, card: str) -> dict:
 HEADLINE_MODULE = "particlesystemhybridcollisiondetection_tpu_torch.bench.headline"
 HEADLINE_TIMEOUT = 600
 HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
-# the profiler's names of the kernels each launch count's launches run
-# once a launch (B1's main and rescue counts launch the same kernel)
-TRACED_KERNELS = {"window_collide_sorted": "window_collide_kernel",
-                  "window_collide_sorted_rescue": "window_collide_kernel",
-                  "cells_window_lookup": "cells_window_lookup_kernel",
-                  "window_collide_worklist": "worklist_collide_kernel"}
+# the profiler's names of the kernels that each launch count's launches
+# run, once each a launch (B1's main and rescue counts launch the same
+# kernel; the worklist entry point launches its scan, then its collide
+# kernel, the last of a sorted step's kernels of B1)
+TRACED_KERNELS = {"window_collide_sorted": ("window_collide_kernel",),
+                  "window_collide_sorted_rescue": ("window_collide_kernel",),
+                  "cells_window_lookup": ("cells_window_lookup_kernel",),
+                  "window_collide_worklist": ("worklist_scan_kernel",
+                                              "worklist_collide_kernel")}
 
 
 def by_symbol(launches: dict) -> dict:
     """Launch counts summed by the kernel they run (``TRACED_KERNELS``)."""
     out: dict = {}
     for name, n in launches.items():
-        out[TRACED_KERNELS[name]] = out.get(TRACED_KERNELS[name], 0) + n
+        for symbol in TRACED_KERNELS[name]:
+            out[symbol] = out.get(symbol, 0) + n
     return out
 
 
 def traced_launches(prof) -> dict:
-    """Launches of B1, B2 and the worklist entry point in a profiler
-    session, counted by kernel name (replayed graphs' kernels included);
-    {} when the device trace came back empty."""
+    """Launches of B1, B2 and the worklist entry point's kernels in a
+    profiler session, counted by kernel name (replayed graphs' kernels
+    included); {} when the device trace came back empty."""
     from torch.autograd import DeviceType
 
-    counts = {symbol: 0 for symbol in set(TRACED_KERNELS.values())}
+    counts = {symbol: 0 for symbols in TRACED_KERNELS.values() for symbol in symbols}
     seen = False
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -2064,19 +2171,20 @@ def traced_launches(prof) -> dict:
 def busy_per_step(prof, steps: int):
     """The device's busy and elapsed ms per step over an episode's last
     ``steps`` steps, from the trace: every CUDA event (kernels, copies,
-    sets) that starts after the end of the worklist launch (rescue phase
-    2) of the step before them and up to the end of the last one, summed,
-    that span, and the device events a step.  Steps are told apart by
-    that launch, so it needs one a step (the caller checks it); None
-    when the trace holds too few of them (an empty device trace)."""
+    sets) that starts after the end of the worklist entry point's last
+    kernel (its collide kernel, rescue phase 2) of the step before them
+    and up to the end of the last one, summed, that span, and the device
+    events a step.  Steps are told apart by that kernel, so it needs one
+    launch a step (the caller checks it); None when the trace holds too
+    few of them (an empty device trace)."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    b1 = sorted((e.time_range.end for e in events
-                 if TRACED_KERNELS["window_collide_worklist"] in e.name))
-    if len(b1) <= steps:
+    last = TRACED_KERNELS["window_collide_worklist"][-1]
+    ends = sorted((e.time_range.end for e in events if last in e.name))
+    if len(ends) <= steps:
         return None
-    t0, t1 = b1[-steps - 1], b1[-1]
+    t0, t1 = ends[-steps - 1], ends[-1]
     inside = [e for e in events if t0 < e.time_range.start < t1]
     busy = sum(e.time_range.end - e.time_range.start for e in inside)
     return busy / 1000.0 / steps, (t1 - t0) / 1000.0 / steps, len(inside) / steps
@@ -2185,8 +2293,8 @@ def drive_headline(torch, card: str, runner, snap600) -> dict:
     if traced and traced != by_symbol(launches):
         raise RuntimeError(f"the launch counters {launches} disagree with the "
                            f"profiler's count {traced}")
-    # how much of a timed step the device works: the worklist launch,
-    # once a step, marks where each step ends in the trace
+    # how much of a timed step the device works: the worklist's collide
+    # kernel, once a step, marks where each step ends in the trace
     busy = busy_per_step(prof, res.num_steps)
     if busy is None:
         print(f"[{card}] headline device time per step: not measured")
@@ -2286,9 +2394,13 @@ def main() -> int:
     print(f"[{card}] kernel build (nvcc, {len(build.SOURCES)} sources in "
           f"parallel): {build_s:.2f} s")
     for name, log in build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, usage in ptxas_usage(log):
+            print(f"  ptxas {name} {kernel}: {usage}")
+    sass = sass_counts(build)
+    wl_blocks, wl_regs, wl_local = wk.worklist_occupancy(torch.device("cuda", 0))
+    print(f"[{card}] worklist collide kernel: {wl_blocks} blocks of "
+          f"{wk.WORKLIST_BATCH} threads an SM, {wl_regs} registers and {wl_local} "
+          "local bytes a thread")
 
     # the four cameras' bakes, in parallel, for phases 5, 8 and 10
     prebake(card)
@@ -2400,6 +2512,10 @@ def main() -> int:
         for tag, (args, w) in cases.items():
             b1[(tag, at)] = window_case(torch, card, sp, f"{tag}, step {at}", args, w)
         wl[at] = worklist_case(torch, card, sp, f"step {at}", wl_args)
+        if at == SNAP_STEP:
+            # what a step that lists no lane pays (free fall: the headline)
+            wl["empty"] = worklist_case(torch, card, sp, f"step {at}, empty list",
+                                        empty_list(wl_args))
         del b2_args, cases, wl_args
 
     # ---- a reading, no default changed: steps 600-700 once more with the
@@ -2461,21 +2577,26 @@ def main() -> int:
 
     def wl_entry(suffix, numbers, n_launch):
         # B1's second entry point: rescue phase 2 (the TPU kernel's rescue
-        # use; the JAX package takes those lanes by its packed path)
+        # use; the JAX package takes those lanes by its packed path); its
+        # collide kernel's blocks per SM, registers and local bytes a
+        # thread, and its instructions per candidate (sass_counts)
         return {"name": "window_collide_worklist" + suffix, "route": "cuda",
                 "source": PORT_CSRC + "window_kernel.cu",
                 "replaces": f"{JAX_KERNELS}:346", "launches": n_launch,
-                **numbers, "library_ms": None}
+                **numbers, "library_ms": None,
+                "collide_kernel": {"blocks_per_sm": wl_blocks, "registers": wl_regs,
+                                   "local_bytes": wl_local, "sass_per_candidate": sass}}
 
     def headline_keys(key):
         # phase 11: the headline episode's launches (the counter, which
-        # counts graph replays; the profiler's count of the kernel the
+        # counts graph replays; the profiler's count of each kernel the
         # counter's launches run, B1's main and rescue launches together,
         # null when its trace was empty) and the case at the settled
         # probe's window on its state at step 620
         keys = {"launches_headline": head["launches"][key],
                 "kernel_launches_headline_traced":
-                    head["traced"].get(TRACED_KERNELS[key])}
+                    {symbol: head["traced"].get(symbol)
+                     for symbol in TRACED_KERNELS[key]}}
         if key in head:
             keys["settled_probe"] = {**head[key], "library_ms": None}
         return keys
@@ -2513,6 +2634,8 @@ def main() -> int:
         with_chunk(b1_entry(":rescue_phase1_step700", b1[("rescue phase 1", N_STEPS)],
                             launches[rescue]), b1[("rescue chunk", N_STEPS)]),
         wl_entry(":step700", wl[N_STEPS], launches["window_collide_worklist"]),
+        # the same launch with no lane listed, on the state at step 650
+        wl_entry(":empty_list", wl["empty"], launches["window_collide_worklist"]),
         # the hybrid path's launches, held against their plain versions on
         # the hybrid state at step 650 (counts zeroed on lanes the
         # screen-space stage decided)

@@ -5,11 +5,14 @@
 // launched by window_collide_sorted), as the main pass of every sorted
 // step, as the phase-1 rescue kernel and, through a second entry point
 // (psys_window_collide_worklist, at the end), as rescue phase 2: a list of
-// lanes compacted on the device, each alone, with no window.  What bounds
-// that entry point is the bytes of its lanes' candidate rows (36 B each)
-// and the lane state; one warp per lane walks the lane's candidates, so a
-// dense cell (up to the rescue window's 1921 candidates) costs its warp
-// 60 passes, not a block.
+// lanes compacted on the device, each alone, with no window.  That entry
+// point stands for the phase-2 rescue of the TPU kernel's callers
+// (core/step.py:840-1103 of the JAX package, which relaunches _kernel on
+// rows of isolated lanes).  What bounds it is operations where the listed
+// lanes are dense (the protocol's 2M particles) and bytes where they are
+// few (the 1M scene: candidate rows and lane state); its design, a flat
+// list of (lane, k) items spread over the card, is set out at the entry
+// point's kernels.
 //
 // Per particle, in sorted order: the exact swept-sphere test against its
 // candidates k < count, read from rows ws + rel + k of the planar
@@ -430,69 +433,273 @@ __global__ void __launch_bounds__(LANE) finish_kernel(
   respond_store(l, found, v0, v1, v2, st, pos_out, vel_out, hit_out, n, i);
 }
 
-// Rescue phase 2 (the worklist entry point): each listed lane alone, one
-// warp per lane, grid-stride over the list, whose length is read from
-// device memory (the host never learns it).  The lane's candidates are
-// rows start + k, k < count, of the pair table, read straight from it:
-// a lane alone in its row needs no window.  The arithmetic is the row
-// kernel's -- load_lane, eval_candidate, the 64-bit (bits(t2) << 32) | k
-// nearest-hit key (here a warp shuffle minimum instead of a shared-memory
-// atomic; the minimum is the same) and respond_store -- so a listed lane
-// gets the bits that the row kernel gives it alone in a row of 128
+// Rescue phase 2 (the worklist entry point): the listed lanes
+// lanes[0 .. *n_lanes), each alone, on rows start + k, k < bound =
+// min(count, k_static), of the pair table (a lane alone in its row needs
+// no window).  The list's length stays in device memory and the grid does
+// not depend on it.  The arithmetic is the row kernel's -- load_lane,
+// eval_candidate, the nearest hit as the minimum of the 64-bit key
+// (bits(t2) << 32) | k, respond_store -- so a listed lane gets the bits
+// that the row kernel gives it alone in a row of 128
 // (window_collide_worklist_plain holds that on the CPU).
+//
+// The work is a flat list of (listed lane, k) items spread evenly over
+// the card, the row kernel's split design applied across the list.  A
+// listed lane owns units = max(bound, 1) items: a lane with no candidate
+// still owns one, its response and integrator.  Two kernels:
+//
+//   * worklist_scan_kernel: block c takes chunk c of the list (ceil(m /
+//     scan blocks) entries), writes each entry's exclusive offset of
+//     units within its chunk to off[] and the chunk's sum to bsum[c]; it
+//     also resets the edge slots below.
+//   * worklist_collide_kernel, a grid sized from occupancy: every block
+//     scans bsum[] into chunk bases in shared memory (the total T), takes
+//     the items [T b / G, T (b + 1) / G), finds the entries that own its
+//     first and last item (a binary search of the bases, then off[]
+//     within a chunk, 32 probes a round), and walks those entries in
+//     batches of WL_THREADS: each
+//     thread stages one entry (lane state, first row, the entry's items
+//     inside the share), a block scan of the clipped counts, then all
+//     threads walk the batch's items with a stride of the block size and
+//     fold each hit's key by atomicMin into the entry's shared slot.
+//     A lane wholly inside the share is finished by its staging thread
+//     (candidate k* evaluated once more, response, integrator).  A lane
+//     across a share's edge folds its key into a global slot (the share
+//     of its first item: one lane a slot) and adds its items to the
+//     slot's count; the block that brings the count to the lane's units
+//     finishes it (__threadfence between the two atomics).
+//
+// What bounds it on the H100: by the table's count (about 550 float
+// operations a candidate, each one), operations where lanes are dense
+// (the protocol's 3.2M candidates) and bytes where they are few (36 B of
+// pair row a distinct row, the lane state); in fact the instructions
+// issued, since the IEEE divisions and square roots of the --fmad=false
+// build expand to about 600 FP32 instructions a candidate in the SASS.
+// One warp a lane (the first version of this entry point) left a dense
+// lane's candidates to 32 threads, a serial tail on lane 0, and a
+// quarter of the card's warps; here no thread waits for a dense lane,
+// the tail is one thread a lane, and the grid fills what occupancy
+// allows.
 constexpr int WL_THREADS = 256;
+// most blocks of the scan kernel (chunk bases fit one per thread)
+constexpr int WL_SCAN_MAX = WL_THREADS;
+// blocks an SM the collide kernel is held to: more resident warps to
+// hide the candidate test's dependent latency; ptxas keeps it to 64
+// registers with a few bytes spilled outside the walk (its -Xptxas -v
+// report, which chip_smoke.py prints)
+constexpr int WL_MIN_BLOCKS = 4;
 
-__global__ void __launch_bounds__(WL_THREADS) worklist_collide_kernel(
+// Exclusive scan of v over the block (every thread calls it, WL_THREADS
+// of them); total gets the block's sum.  s_w: WL_THREADS / 32 slots.
+template <typename T>
+__device__ __forceinline__ T block_scan(T v, T* s_w, T& total) {
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (wl >= o) incl += y;
+  }
+  if (wl == 31) s_w[warp] = incl;
+  __syncthreads();
+  T base = 0, sum = 0;
+  for (int q = 0; q < WL_THREADS / 32; ++q) {
+    const T w = s_w[q];
+    if (q < warp) base += w;
+    sum += w;
+  }
+  __syncthreads();
+  total = sum;
+  return base + incl - v;
+}
+
+__device__ __forceinline__ int32_t wl_bound(const int32_t* __restrict__ count,
+                                            int64_t i, int32_t k_static) {
+  return max(0, min(count[i], k_static));
+}
+
+__global__ void __launch_bounds__(WL_THREADS) worklist_scan_kernel(
+    const int32_t* __restrict__ count, const int32_t* __restrict__ lanes,
+    const int32_t* __restrict__ n_lanes, int32_t k_static, int32_t* __restrict__ off,
+    int32_t* __restrict__ bsum, unsigned long long* __restrict__ edge_key,
+    uint32_t* __restrict__ edge_cnt, int32_t blocks) {
+  __shared__ int32_t s_w[WL_THREADS / 32];
+  const int32_t m = *n_lanes;
+  if (m == 0) return;
+  for (int32_t s = blockIdx.x * WL_THREADS + threadIdx.x; s < blocks;
+       s += gridDim.x * WL_THREADS) {
+    edge_key[s] = NO_HIT;
+    edge_cnt[s] = 0;
+  }
+  const int32_t chunk = (m + gridDim.x - 1) / gridDim.x;
+  const int32_t j0 = (int32_t)blockIdx.x * chunk, j1 = min(m, j0 + chunk);
+  int32_t run = 0;
+  for (int32_t jb = j0; jb < j1; jb += WL_THREADS) {
+    const int32_t j = jb + threadIdx.x;
+    const int32_t u = j < j1 ? max(1, wl_bound(count, lanes[j], k_static)) : 0;
+    int32_t tile;
+    const int32_t excl = block_scan(u, s_w, tile);
+    if (j < j1) off[j] = run + excl;
+    run += tile;
+  }
+  if (threadIdx.x == 0) bsum[blockIdx.x] = run;
+}
+
+__global__ void __launch_bounds__(WL_THREADS, WL_MIN_BLOCKS) worklist_collide_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ radius, const float* __restrict__ restit,
     const int32_t* __restrict__ start, const int32_t* __restrict__ count,
     const int32_t* __restrict__ lanes, const int32_t* __restrict__ n_lanes,
-    const float* __restrict__ pairs, int64_t p_pad, float* __restrict__ pos_out,
-    float* __restrict__ vel_out, int32_t* __restrict__ hit_out, int64_t n,
-    int32_t k_static, Step st) {
+    const int32_t* __restrict__ off, const int32_t* __restrict__ bsum,
+    int32_t scan_blocks, unsigned long long* __restrict__ edge_key,
+    uint32_t* __restrict__ edge_cnt, const float* __restrict__ pairs, int64_t p_pad,
+    float* __restrict__ pos_out, float* __restrict__ vel_out,
+    int32_t* __restrict__ hit_out, int64_t n, int32_t k_static, Step st) {
+  __shared__ long long s_base[WL_SCAN_MAX + 1];  // chunk bases, then T
+  __shared__ long long s_w64[WL_THREADS / 32];
+  __shared__ int32_t s_w[WL_THREADS / 32];
+  __shared__ int32_t s_own[2];
+  // the batch's entries: lane state, first row and first k of the share,
+  // candidates left from that k, offset in the batch's items, nearest key
+  __shared__ float s_px[WL_THREADS], s_py[WL_THREADS], s_pz[WL_THREADS];
+  __shared__ float s_dx[WL_THREADS], s_dy[WL_THREADS], s_dz[WL_THREADS];
+  __shared__ float s_r[WL_THREADS], s_seg2[WL_THREADS];
+  __shared__ int32_t s_row[WL_THREADS], s_klo[WL_THREADS], s_left[WL_THREADS];
+  __shared__ int32_t s_off[WL_THREADS];
+  __shared__ unsigned long long s_best[WL_THREADS];
+
   const float INF = __int_as_float(0x7f800000);
-  const int wl = threadIdx.x & 31;
-  const int warps_per_block = blockDim.x >> 5;
+  const int tid = threadIdx.x;
   const int32_t m = *n_lanes;
-  const int32_t stride = (int32_t)gridDim.x * warps_per_block;
-  for (int32_t j = (int32_t)blockIdx.x * warps_per_block + (threadIdx.x >> 5); j < m;
-       j += stride) {
-    const int64_t i = lanes[j];
-    const Lane l = load_lane(pos, vel, radius, restit, n, i, st.dt2);
-    const float* row = pairs + start[i];
-    const int32_t bound = max(0, min(count[i], k_static));
-    unsigned long long best = NO_HIT;
-    for (int32_t k = wl; k < bound; k += 32) {
-      const float* r = row + k;
-      const V3 v0 = {r[0], r[p_pad], r[2 * p_pad]};
-      const V3 v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
-      const V3 v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
-      float c_t2, c_t;
-      bool c_hit;
-      V3 nr;
-      eval_candidate(l.p, l.d, l.r, v0, v1, v2, c_t2, c_t, c_hit, nr);
-      // span check (compute:226-231); a hit with t2 == INF never wins
-      if (c_hit && (c_t2 <= l.seg2) && (c_t2 < INF)) {
-        const unsigned long long key =
-            ((unsigned long long)__float_as_uint(c_t2) << 32) | (uint32_t)k;
-        if (key < best) best = key;
+  if (m == 0) return;
+  const int32_t chunk = (m + scan_blocks - 1) / scan_blocks;
+  const int32_t c_last = (m - 1) / chunk;  // the last chunk holding entries
+  long long total;
+  const long long b = tid < scan_blocks ? bsum[tid] : 0;
+  const long long base = block_scan(b, s_w64, total);
+  if (tid < scan_blocks) s_base[tid] = base;
+  if (tid == 0) s_base[scan_blocks] = total;
+  __syncthreads();
+  const long long G = gridDim.x;
+  const long long s_b = total * blockIdx.x / G, e_b = total * (blockIdx.x + 1) / G;
+  if (s_b == e_b) return;
+
+  // the entry owning item x: the largest j with base[j / chunk] + off[j]
+  // <= x (units >= 1, so the offsets rise strictly).  Warp 0 finds the
+  // owner of the share's first item, warp 1 of its last: the chunk by a
+  // binary search of the bases, then within the chunk 32 probes a round
+  // (the probes at or below x are a prefix of the warp), so a chunk of
+  // up to 32 entries costs one round of loads
+  if (tid < 64) {
+    const int wl = tid & 31;
+    const long long x = tid < 32 ? s_b : e_b - 1;
+    int lo = 0, hi = c_last;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_base[mid] <= x) lo = mid; else hi = mid - 1;
+    }
+    const long long rx = x - s_base[lo];
+    int32_t a = lo * chunk, z = min(m, a + chunk);  // owner in [a, z), off[a] = 0
+    while (z - a > 1) {
+      const int32_t step = (z - a + 31) / 32;
+      const int32_t p = a + wl * step;
+      const unsigned below = __ballot_sync(0xffffffffu, p < z && off[p] <= rx);
+      a += (__popc(below) - 1) * step;
+      z = min(z, a + step);
+    }
+    if (wl == 0) s_own[tid >> 5] = a;
+  }
+  __syncthreads();
+  const int32_t o_first = s_own[0], o_last = s_own[1];
+
+  for (int32_t jb = o_first; jb <= o_last; jb += WL_THREADS) {
+    const int32_t j = jb + tid;
+    const bool own = j <= o_last;
+    const int nv = min(WL_THREADS, o_last - jb + 1);
+    int64_t i = 0;
+    long long g = 0;
+    int32_t units = 0, klo = 0, khi = 0;
+    if (own) {
+      i = lanes[j];
+      const int32_t bound = wl_bound(count, i, k_static);
+      units = max(1, bound);
+      g = s_base[j / chunk] + off[j];
+      klo = (int32_t)(max(g, s_b) - g);
+      khi = (int32_t)(min(g + units, e_b) - g);
+      const Lane l = load_lane(pos, vel, radius, restit, n, i, st.dt2);
+      s_px[tid] = l.p.x;
+      s_py[tid] = l.p.y;
+      s_pz[tid] = l.p.z;
+      s_dx[tid] = l.d.x;
+      s_dy[tid] = l.d.y;
+      s_dz[tid] = l.d.z;
+      s_r[tid] = l.r;
+      s_seg2[tid] = l.seg2;
+      s_row[tid] = start[i] + klo;
+      s_klo[tid] = klo;
+      s_left[tid] = bound - klo;  // <= 0: the one item of a lane with none
+      s_best[tid] = NO_HIT;
+    }
+    int32_t items;
+    const int32_t excl = block_scan(own ? khi - klo : 0, s_w, items);
+    s_off[tid] = excl;
+    __syncthreads();
+
+    for (int32_t x = tid; x < items; x += WL_THREADS) {
+      int o = 0, hi = nv - 1;
+      while (o < hi) {
+        const int mid = (o + hi + 1) >> 1;
+        if (s_off[mid] <= x) o = mid; else hi = mid - 1;
+      }
+      const int32_t q = x - s_off[o];
+      if (q < s_left[o]) {
+        const float* r = pairs + s_row[o] + q;
+        const V3 v0 = {r[0], r[p_pad], r[2 * p_pad]};
+        const V3 v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
+        const V3 v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
+        float c_t2, c_t;
+        bool c_hit;
+        V3 nr;
+        eval_candidate({s_px[o], s_py[o], s_pz[o]}, {s_dx[o], s_dy[o], s_dz[o]},
+                       s_r[o], v0, v1, v2, c_t2, c_t, c_hit, nr);
+        // span check (compute:226-231); a hit with t2 == INF never wins
+        if (c_hit && (c_t2 <= s_seg2[o]) && (c_t2 < INF)) {
+          const unsigned long long key =
+              ((unsigned long long)__float_as_uint(c_t2) << 32) | (uint32_t)(s_klo[o] + q);
+          atomicMin(&s_best[o], key);
+        }
       }
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, o);
-      if (other < best) best = other;
-    }
-    if (wl == 0) {
-      const bool found = best != NO_HIT;
-      V3 v0 = {0.f, 0.f, 0.f}, v1 = v0, v2 = v0;
-      if (found) {
-        const float* r = row + (int32_t)(uint32_t)best;
-        v0 = {r[0], r[p_pad], r[2 * p_pad]};
-        v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
-        v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
+    __syncthreads();
+
+    if (own) {
+      unsigned long long key = s_best[tid];
+      bool finish = true;
+      if (klo > 0 || khi < units) {
+        // across a share's edge: the slot of the share holding item g
+        const int32_t slot = (int32_t)min(G - 1, ((g + 1) * G - 1) / total);
+        if (key != NO_HIT) atomicMin(&edge_key[slot], key);
+        __threadfence();
+        const uint32_t part = (uint32_t)(khi - klo);
+        finish = atomicAdd(&edge_cnt[slot], part) + part == (uint32_t)units;
+        if (finish) {
+          __threadfence();
+          key = atomicMin(&edge_key[slot], NO_HIT);  // reads the folded key
+        }
       }
-      respond_store(l, found, v0, v1, v2, st, pos_out, vel_out, hit_out, n, i);
+      if (finish) {
+        const Lane l = load_lane(pos, vel, radius, restit, n, i, st.dt2);
+        const bool found = key != NO_HIT;
+        V3 v0 = {0.f, 0.f, 0.f}, v1 = v0, v2 = v0;
+        if (found) {
+          const float* r = pairs + start[i] + (int32_t)(uint32_t)key;
+          v0 = {r[0], r[p_pad], r[2 * p_pad]};
+          v1 = {r[3 * p_pad], r[4 * p_pad], r[5 * p_pad]};
+          v2 = {r[6 * p_pad], r[7 * p_pad], r[8 * p_pad]};
+        }
+        respond_store(l, found, v0, v1, v2, st, pos_out, vel_out, hit_out, n, i);
+      }
     }
+    __syncthreads();  // the next batch reuses the shared arrays
   }
 }
 
@@ -553,20 +760,53 @@ extern "C" int psys_window_collide(
 }
 
 // Rescue phase 2: lanes[0 .. *n_lanes) (sorted-lane indices; *n_lanes in
-// device memory) each alone, over `blocks` blocks of 256 threads, one
-// warp per listed lane.  start/count: each lane's rows in the pair table.
-// Writes pos_out/vel_out/hit_out at the listed lanes only.  Returns the
-// launch's CUDA error, 0 if none.
+// device memory) each alone.  start/count: each lane's rows in the pair
+// table.  Two launches: the scan kernel (scan_blocks blocks, at most
+// 256) and the collide kernel (`blocks` blocks of 256 threads, from
+// psys_window_worklist_occupancy).  Scratch: `scratch` i32[n +
+// scan_blocks + blocks] (each entry's offset within its chunk, the
+// chunks' sums, the edge slots' counts), edge_key u64[blocks]; neither
+// needs filling.  Writes pos_out/vel_out/hit_out at the listed lanes
+// only.  Returns the first CUDA error, 0 if none.
 extern "C" int psys_window_collide_worklist(
     const float* pos, const float* vel, const float* radius, const float* restit,
     const int32_t* start, const int32_t* count, const int32_t* lanes,
     const int32_t* n_lanes, const float* pairs, int64_t p_pad, float* pos_out,
     float* vel_out, int32_t* hit_out, int64_t n, int32_t k_static, float gx, float gy,
-    float gz, float dt, float dt2, float backoff, int32_t blocks, void* stream) {
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
+    float gz, float dt, float dt2, float backoff, int32_t blocks, int32_t scan_blocks,
+    int32_t* scratch, unsigned long long* edge_key, void* stream) {
+  if (blocks < 1 || scan_blocks < 1 || scan_blocks > WL_SCAN_MAX)
+    return (int)cudaErrorInvalidValue;
   const Step st = {gx, gy, gz, dt, dt2, backoff};
-  worklist_collide_kernel<<<(unsigned)blocks, WL_THREADS, 0, (cudaStream_t)stream>>>(
-      pos, vel, radius, restit, start, count, lanes, n_lanes, pairs, p_pad, pos_out,
-      vel_out, hit_out, n, k_static, st);
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t* off = scratch;
+  int32_t* bsum = scratch + n;
+  uint32_t* edge_cnt = (uint32_t*)(scratch + n + scan_blocks);
+  worklist_scan_kernel<<<(unsigned)scan_blocks, WL_THREADS, 0, s>>>(
+      count, lanes, n_lanes, k_static, off, bsum, edge_key, edge_cnt, blocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  worklist_collide_kernel<<<(unsigned)blocks, WL_THREADS, 0, s>>>(
+      pos, vel, radius, restit, start, count, lanes, n_lanes, off, bsum, scan_blocks,
+      edge_key, edge_cnt, pairs, p_pad, pos_out, vel_out, hit_out, n, k_static, st);
   return (int)cudaGetLastError();
+}
+
+// The worklist collide kernel's resident blocks per SM at its block size
+// (the grid is that times the SM count), its registers a thread and its
+// local memory (spills) in bytes a thread.  Returns the CUDA error, 0 if
+// none.
+extern "C" int psys_window_worklist_occupancy(int32_t* blocks_per_sm, int32_t* regs,
+                                              int32_t* local_bytes) {
+  int nb = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, worklist_collide_kernel, WL_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, worklist_collide_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *blocks_per_sm = nb;
+  *regs = attr.numRegs;
+  *local_bytes = (int32_t)attr.localSizeBytes;
+  return 0;
 }

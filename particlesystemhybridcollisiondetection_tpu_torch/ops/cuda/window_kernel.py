@@ -11,7 +11,10 @@ kernels, now hand-written CUDA (``csrc/``):
     and the integrator, fused;
   * ``window_collide_worklist``: a second entry point of B1 for rescue
     phase 2, over a list of lanes compacted on the device
-    (``compact_lanes``), each alone.
+    (``compact_lanes``), each alone: two kernels, a scan of the listed
+    lanes' candidate bounds and a grid sized from occupancy that walks
+    the (lane, k) items in equal shares (``worklist_schedule`` is the
+    schedule's plain version).
 
 Each wrapper has its plain PyTorch version beside it (``*_plain``).  A
 wrapper runs the plain version only for tensors on the CPU; for CUDA
@@ -65,9 +68,13 @@ MAX_WINDOW = 4096
 _ROW_THREADS = 256
 # most blocks per row that a launch with few rows is split into
 _MAX_SPLIT = 16
-# blocks per SM of the worklist entry point (256 threads: 8 listed lanes
-# at a time); the grid does not depend on the list's length
-_WORKLIST_BLOCKS_PER_SM = 2
+# blocks of the worklist entry point's scan kernel: each scans one chunk
+# of the list (at most the kernels' 256 threads a block); the collide
+# kernel's grid is its occupancy times the SMs, so neither depends on the
+# list's length
+WORKLIST_SCAN_BLOCKS = 256
+# listed lanes a block of the collide kernel stages at a time (its threads)
+WORKLIST_BATCH = 256
 
 
 def reset_launches() -> None:
@@ -480,6 +487,28 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[device]
 
 
+_worklist_occ: dict = {}
+
+
+def worklist_occupancy(device: torch.device) -> tuple:
+    """The worklist collide kernel on a CUDA device (read once): (resident
+    blocks per SM, registers a thread, local memory bytes a thread).  Its
+    grid is the first times the SM count."""
+    if device not in _worklist_occ:
+        from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+
+        p = ctypes.POINTER(ctypes.c_int32)
+        fn = build.kernel_function("window_kernel", "psys_window_worklist_occupancy",
+                                   [p, p, p])
+        vals = [ctypes.c_int32() for _ in range(3)]
+        with torch.cuda.device(device):
+            _raise_on(fn(*(ctypes.byref(v) for v in vals)), "worklist occupancy")
+        if vals[0].value < 1:
+            raise RuntimeError("the worklist kernel fits no block on an SM")
+        _worklist_occ[device] = tuple(v.value for v in vals)
+    return _worklist_occ[device]
+
+
 def row_split(n: int, sm_count: int) -> int:
     """Blocks per row of 128 particles for a window-kernel launch over
     ``n`` lanes: 1 when the rows alone give every SM two blocks, else as
@@ -579,6 +608,55 @@ def compact_lanes(take):
     return lanes[:n], t.sum(dtype=torch.int32)
 
 
+class WorklistSchedule(NamedTuple):
+    """The worklist kernels' schedule over the ``m`` listed entries (see
+    ``worklist_schedule``); item indices are global, 0 .. total."""
+
+    bound: torch.Tensor  # i64[m] each entry's candidates, min(count, k_static)
+    units: torch.Tensor  # i64[m] its items: the bound, at least 1
+    off: torch.Tensor  # i64[m] its first item's offset within its chunk
+    bsum: torch.Tensor  # i64[scan_blocks] the chunks' sums
+    first: torch.Tensor  # i64[m] its first item
+    edges: torch.Tensor  # i64[blocks + 1] share b is items [edges[b], edges[b + 1])
+    owners: torch.Tensor  # i64[blocks, 2] a share's first and last entry; -1 if empty
+    slot: torch.Tensor  # i64[m] edge slot of an entry across shares; -1 if not
+
+
+def worklist_schedule(count, lanes, n_lanes, *, k_static: int, blocks: int,
+                      scan_blocks: int = WORKLIST_SCAN_BLOCKS) -> WorklistSchedule:
+    """Plain version of the worklist kernels' schedule (reads ``n_lanes``
+    on the host).  Listed entry j (lane ``lanes[j]``) owns units_j =
+    max(min(count, k_static), 1) items: candidate k of the lane is item
+    first_j + k, and a lane with no candidate owns one item, its response.
+    The scan kernel's block c takes chunk c of the list (ceil(m /
+    scan_blocks) entries) and writes ``off`` and ``bsum``; collide block
+    b takes the items [total b / blocks, total (b + 1) / blocks) and the
+    entries that own them (the owner of item x is the last entry with
+    first <= x).  An entry whose items fall in two or more shares folds
+    its nearest hit into edge slot ``slot``, that of the share of its first
+    item; every share's block adds its part to the slot's count, and the
+    one that completes it finishes the lane."""
+    dev = count.device
+    m = int(n_lanes)
+    bound = torch.clamp(count[lanes[:m].long()].long(), 0, k_static)
+    units = torch.clamp(bound, min=1)
+    chunk = max(1, -(-m // scan_blocks))
+    c = torch.arange(m, device=dev) // chunk
+    bsum = torch.zeros(scan_blocks, dtype=torch.int64, device=dev).index_add_(0, c, units)
+    first = torch.cumsum(units, 0) - units
+    off = first - (torch.cumsum(bsum, 0) - bsum)[c]
+    total = int(bsum.sum())
+    edges = total * torch.arange(blocks + 1, device=dev) // blocks
+    ends = torch.stack([edges[:-1], edges[1:] - 1], dim=1)  # each share's items
+    owners = torch.where(ends[:, :1] <= ends[:, 1:],
+                         torch.searchsorted(first, ends, right=True) - 1, -1)
+    shares = torch.searchsorted(edges, torch.stack([first, first + units - 1]),
+                                right=True) - 1
+    across = shares[0] != shares[1]
+    slot = torch.where(across, ((first + 1) * blocks - 1) // max(total, 1), -1)
+    return WorklistSchedule(bound, units, off, bsum, first, edges, owners, slot)
+
+
 def window_collide_worklist_plain(
     pos_s, vel_s, radius_s, restit_s, start, count, lanes, n_lanes,
     tables: WindowTables, pos_out, vel_out, hit_out, *, w: int, k_static: int,
@@ -630,9 +708,9 @@ def window_collide_worklist(
     ``pos_out``/``vel_out``/``hit_out`` (other lanes untouched).  Each
     listed lane must fit a row's ``w``-row window alone (start % 128 +
     count <= w; the rescue lists no other): then its result is, bit for
-    bit, the window kernel's for it alone in a row of LANE.  One launch
-    whose grid does not depend on the list, so the list's length never
-    leaves the device."""
+    bit, the window kernel's for it alone in a row of LANE.  Two kernels
+    (``worklist_schedule``) whose grids do not depend on the list, so the
+    list's length never leaves the device; one count a call."""
     n = pos_s.shape[-1]
     kw = dict(w=w, k_static=k_static, gravity=gravity, dt=dt, backoff=backoff)
     if pos_s.device.type == "cpu":
@@ -661,8 +739,15 @@ def window_collide_worklist(
     c = ctypes
     fn = build.kernel_function("window_kernel", "psys_window_collide_worklist", [
         *([c.c_void_p] * 9), c.c_int64, *([c.c_void_p] * 3), c.c_int64,
-        c.c_int32, *([c.c_float] * 6), c.c_int32, c.c_void_p,
+        c.c_int32, *([c.c_float] * 6), c.c_int32, c.c_int32, *([c.c_void_p] * 3),
     ])
+    blocks = worklist_occupancy(dev)[0] * _sm_count(dev)
+    # scratch the kernels overwrite before they read it: each entry's
+    # offset in its chunk, the chunks' sums, the edge slots' counts; the
+    # edge slots' keys
+    scratch = torch.empty((n + WORKLIST_SCAN_BLOCKS + blocks,), dtype=torch.int32,
+                          device=dev)
+    edge_key = torch.empty((blocks,), dtype=torch.int64, device=dev)
     f32 = np.float32
     err = fn(
         _ptr(pos_s), _ptr(vel_s), _ptr(radius_s), _ptr(restit_s), _ptr(start),
@@ -670,7 +755,7 @@ def window_collide_worklist(
         _ptr(pos_out), _ptr(vel_out), _ptr(hit_out), n, k_static,
         float(f32(gravity[0])), float(f32(gravity[1])), float(f32(gravity[2])),
         float(f32(dt)), float(f32(dt * dt)), float(f32(backoff)),
-        _WORKLIST_BLOCKS_PER_SM * _sm_count(dev), _stream(dev),
+        blocks, WORKLIST_SCAN_BLOCKS, _ptr(scratch), _ptr(edge_key), _stream(dev),
     )
     _raise_on(err, "window_collide_worklist")
     LAUNCHES["window_collide_worklist"] += 1
