@@ -38,14 +38,50 @@
 //   * psys_p2p_collide_worklist, the exact redo: lanes[0 .. *n_lanes)
 //     (sorted indices, compacted on the device; the length is read from
 //     device memory, so the host never learns it), one thread a listed
-//     lane over a fixed grid, grid-stride over the list.  The thread
-//     walks the lane's nine FULL runs (derived from the cell ids and
-//     the offsets as above, no window), candidates in (g, k) order, the
-//     self pair skipped by index, and writes pos, vel and ncon of the
-//     listed lanes in place.  It computes what the host-looped chunked
-//     fallback (ops/p2p_sorted.py::_p2p_chunked_fallback) computes for
-//     those lanes, bit for bit: one thread keeps the sums sequential,
-//     where a warp reduction would reorder them.
+//     lane.  The thread walks the lane's nine FULL runs (derived from the
+//     cell ids and the offsets as above, no window), candidates in (g, k)
+//     order, and writes pos, vel and ncon of the listed lanes in place.
+//     It computes what the host-looped chunked fallback
+//     (ops/p2p_sorted.py::_p2p_chunked_fallback) computes for those
+//     lanes, bit for bit.  The self pair, which the fallback masks by
+//     index, adds nothing here either: dist^2 = 0 rejects it.
+//
+// The worklist body.  What bounds it on the H100 is bytes: 68 B a listed
+// lane (its column of 32 B, cell id and list entry, 28 B out), 16 B a
+// distinct candidate column (pos xyz and radius; velocity and
+// restitution only where a pair touches) and 4 B a distinct CSR offset,
+// against about 20 operations a candidate that does not touch.  The
+// first body (one thread a lane, grid-stride over 8 blocks of 256 an SM)
+// read 0.085 ms on the device of an H100 for the window-128 list of the
+// 1M-particle gravity box at step 100 (933,888 lanes), 3.9x that bound.
+// Bodies tried beside it on the card showed what it lost to: on a short
+// list, a chain of dependent loads (a group's two offsets, then each
+// candidate) walked by few warps, 32 lanes to a warp; on a long one, not
+// the latency of those loads (loading four candidates ahead gained
+// nothing) but the order in which the warps read: neighbouring lanes in
+// one warp, whose runs in a group overlap, and the resident warps side
+// by side over one stretch of the list, which a grid-stride over the
+// resident blocks gives and an even contiguous share per warp does not.
+// Staging a block's spans in shared memory (a barrier per chunk) and
+// testing a batch's (lane, candidate) items 32 a round before each lane
+// folds its touching ones (each round's loads scattered over nine runs)
+// were slower than the first body on the long list.  The design now:
+//
+//   * The grid is as many blocks as occupancy keeps resident (4 of 256
+//     threads an SM, 64 registers), never sized from the list, so a
+//     captured graph stays valid; warp w of W takes the entries
+//     [(w + W s) width, (w + W s + 1) width) at step s, width = min(32,
+//     ceil(m / W)) from the length on the device: a long list gives each
+//     warp 32 neighbouring lanes and the warps one stretch of the list
+//     at a time; a short one spreads over the warps, one lane a warp, so
+//     no lane waits on another's runs.  An empty list costs one launch
+//     whose threads read the length and leave.
+//   * A thread loads its lane's 18 run offsets at once (one latency, not
+//     nine), and reads a candidate's four values at 32-bit element
+//     offsets of one base pointer, with no index test for the self pair.
+//   * The sums stay in one thread: a lane's impulses are float sums in
+//     (g, k) order, which a reduction over threads would reorder, so
+//     only the lanes, never a lane's candidates, are spread out.
 //
 // The TPU kernel loops k < k_cap[b, g] for the whole block and masks
 // k < cnt and rel + k < w per lane.  Here a lane's candidates are
@@ -385,36 +421,49 @@ __global__ void __launch_bounds__(LANE, 8) p2p_window_kernel(
   store(l, pos_out, vel_out, ncon_out, n, i);
 }
 
-// The worklist entry point's body: listed lane j of lanes[0 .. *n_lanes)
-// is sorted particle lanes[j], its column of rows [8, pitch] (pos xyz,
-// vel xyz, radius, restitution; the candidates are columns of the same
-// array), its nine full runs from cid_s and the offsets.  One thread a
-// listed lane, grid-stride over the list.
+// The worklist entry point's body (see the header): one thread a listed
+// lane; warp w of W takes the entries [(w + W s) width, (w + W s + 1)
+// width) at step s, width = min(32, ceil(m / W)).
 constexpr int WL_THREADS = 256;
+// blocks an SM the kernel is held to: 64 registers a thread, enough for
+// the 18 run offsets and the lane's sums without a spill
+constexpr int WL_MIN_BLOCKS = 4;
 
-__global__ void __launch_bounds__(WL_THREADS) p2p_worklist_kernel(
+// Run [start, start + count) of lane l, in order; p1, p2, p6 are 1, 2
+// and 6 pitches, as 32-bit element offsets of the rows y, z and radius.
+// The self pair needs no index test: dist^2 = 0 rejects it, as in the
+// window body.
+__device__ __forceinline__ void walk_run(Lane& l, int32_t start, int32_t count,
+                                         const float* __restrict__ rows, int32_t p1,
+                                         int32_t p2, int32_t p6, float beta) {
+  const int32_t end = start + count;
+  for (int32_t q = start; q < end; ++q)
+    add_contact(l, rows[q], rows[q + p1], rows[q + p2], rows[q + p6], rows + q, p1,
+                beta);
+}
+
+__global__ void __launch_bounds__(WL_THREADS, WL_MIN_BLOCKS) p2p_worklist_kernel(
     const float* __restrict__ rows, int64_t pitch, Grid grid,
     const int32_t* __restrict__ lanes, const int32_t* __restrict__ n_lanes,
     float* __restrict__ pos_out, float* __restrict__ vel_out,
     int32_t* __restrict__ ncon_out, int64_t n, float beta) {
-  const int32_t m_lanes = *n_lanes;
-  const int32_t stride = (int32_t)(gridDim.x * blockDim.x);
-  for (int32_t j = (int32_t)(blockIdx.x * blockDim.x + threadIdx.x); j < m_lanes;
-       j += stride) {
+  const int32_t m = *n_lanes;
+  const int32_t warps = (int32_t)(gridDim.x * (WL_THREADS / 32));
+  const int32_t width = min(32, max(1, (m + warps - 1) / warps));
+  const int32_t u = (int32_t)(threadIdx.x & 31);
+  if (u >= width) return;
+  const int32_t p1 = (int32_t)pitch;  // rows [8, pitch] fit 32 bits (the launcher checks)
+  const int32_t w = (int32_t)((blockIdx.x * WL_THREADS + threadIdx.x) >> 5);
+  for (int32_t j = w * width + u; j < m; j += warps * width) {
     const int64_t i = lanes[j];
     Lane l = load_lane(rows, pitch, i);
     const Cell cell = cell_of(grid, grid.cid_s[i]);
-    for (int g = 0; g < N_GROUPS; ++g) {
-      int32_t start, count;
-      full_run(grid, cell, g, start, count);
-      for (int32_t k = 0; k < count; ++k) {
-        const int64_t q = (int64_t)start + k;
-        if (q == i) continue;  // the self pair, by index
-        const float* col = rows + q;
-        add_contact(l, col[0], col[pitch], col[2 * pitch], col[6 * pitch], col, pitch,
-                    beta);
-      }
-    }
+    int32_t start[N_GROUPS], count[N_GROUPS];
+#pragma unroll
+    for (int g = 0; g < N_GROUPS; ++g) full_run(grid, cell, g, start[g], count[g]);
+#pragma unroll
+    for (int g = 0; g < N_GROUPS; ++g)
+      walk_run(l, start[g], count[g], rows, p1, 2 * p1, 6 * p1, beta);
     store(l, pos_out, vel_out, ncon_out, n, i);
   }
 }
@@ -477,16 +526,37 @@ extern "C" int psys_p2p_window_collide_cells(
 // first), n_lanes i32[] in device memory, rows f32[8, pitch] the sorted
 // rows (candidates are its columns), cid_s/offsets/grid dims as above.
 // Writes pos_out/vel_out [3, n] and ncon_out [n] at the listed lanes only,
-// over `blocks` blocks of 256 threads.  Returns the launch's CUDA error,
-// 0 if none.
+// over `blocks` blocks of WL_THREADS threads (resident blocks an SM times
+// the SM count, psys_p2p_worklist_occupancy).  The rows are read at
+// 32-bit element offsets, so 8 pitches must fit an int32.  Returns the
+// launch's CUDA error, 0 if none.
 extern "C" int psys_p2p_collide_worklist(
     const float* rows, int64_t pitch, const int32_t* cid_s, const int32_t* offsets,
     int32_t num_cells, int32_t dx, int32_t dy, int32_t dz, const int32_t* lanes,
     const int32_t* n_lanes, float* pos_out, float* vel_out, int32_t* ncon_out, int64_t n,
     float beta, int32_t blocks, void* stream) {
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || 8 * pitch > INT32_MAX) return (int)cudaErrorInvalidValue;
   const Grid grid = {cid_s, offsets, num_cells, dx, dy, dz};
   p2p_worklist_kernel<<<(unsigned)blocks, WL_THREADS, 0, (cudaStream_t)stream>>>(
       rows, pitch, grid, lanes, n_lanes, pos_out, vel_out, ncon_out, n, beta);
   return (int)cudaGetLastError();
+}
+
+// The worklist kernel on the current device: resident blocks an SM,
+// registers a thread, local memory (spills) in bytes a thread and threads
+// a block.  Returns the CUDA error, 0 if none.
+extern "C" int psys_p2p_worklist_occupancy(int32_t* blocks_per_sm, int32_t* regs,
+                                           int32_t* local_bytes, int32_t* threads) {
+  int nb = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, p2p_worklist_kernel, WL_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, p2p_worklist_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *blocks_per_sm = nb;
+  *regs = attr.numRegs;
+  *local_bytes = (int32_t)attr.localSizeBytes;
+  *threads = WL_THREADS;
+  return 0;
 }

@@ -18,7 +18,11 @@ the wrapper's name.
 redo of the lanes whose runs overflowed their windows, over a list of
 lanes compacted on the device (``window_kernel.compact_lanes``) whose
 length it reads from device memory, one thread a listed lane over its
-nine full runs.  It gives the host-looped chunked fallback's bits
+nine full runs.  Its grid comes from occupancy (``worklist_occupancy``);
+the warps walk the list side by side, as many neighbouring entries a warp
+at a time as spread the list over all of them, up to 32
+(``worklist_schedule`` is that schedule in plain PyTorch).  It gives the
+host-looped chunked fallback's bits
 (``ops/p2p_sorted.py::_p2p_chunked_fallback``), which its plain version,
 the same loop over the listed lanes, repeats.
 
@@ -41,6 +45,7 @@ scalar-prefetch arrays) have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +59,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
     _raise_on,
     _sm_count,
     _stream,
+    kernel_occupancy,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as plan
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
@@ -64,9 +70,11 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_plan import N_GROU
 LAUNCHES = {"p2p_window_collide_sorted": 0, "p2p_window_collide_cells": 0,
             "p2p_collide_worklist": 0}
 
-# blocks per SM of the worklist entry point (256 threads, one listed lane
-# each); the grid does not depend on the list's length
-_WORKLIST_BLOCKS_PER_SM = 8
+# threads a block of the worklist entry point (csrc/p2p_window_kernel.cu,
+# WL_THREADS); its grid is as many blocks as occupancy keeps resident
+WORKLIST_THREADS = 256
+# the worklist entry point reads the rows [8, N] at 32-bit element offsets
+MAX_WORKLIST_LANES = (2**31 - 1) // 8
 
 # The kernel stages three [4][w] float buffers in shared memory (an SM has
 # 227 KB for a block); above this window it cannot launch
@@ -288,6 +296,44 @@ def p2p_collide_worklist_plain(rows_s, cid_s, offsets, meta: pg.PGridMeta, lanes
     ncon_k[pick] = ncon
 
 
+class WorklistSchedule(NamedTuple):
+    """Who walks which listed entry in the worklist kernel (see
+    ``worklist_schedule``)."""
+
+    width: int  # entries a warp takes at a step
+    warp: torch.Tensor  # i64[m] the warp that walks each entry
+    step: torch.Tensor  # i64[m] the step at which it does
+    lane: torch.Tensor  # i64[m] its thread within the warp
+
+
+def worklist_schedule(n_lanes, *, blocks: int) -> WorklistSchedule:
+    """Plain version of the worklist kernel's schedule over the first
+    ``n_lanes`` listed entries (read on the host), for a grid of
+    ``blocks`` blocks of WORKLIST_THREADS threads, W warps: one thread an
+    entry; warp w takes entries [(w + W s) width, (w + W s + 1) width) at
+    step s, width = min(32, ceil(m / W)).  A long list gives every warp 32
+    neighbouring entries at a time, the warps side by side over one
+    stretch of the list; a short one spreads over the warps, down to one
+    entry a warp."""
+    m = int(n_lanes)
+    warps = blocks * WORKLIST_THREADS // 32
+    width = min(32, max(1, -(-m // warps)))
+    j = torch.arange(m)
+    batch = j // width
+    return WorklistSchedule(width, batch % warps, batch // warps, j % width)
+
+
+def worklist_occupancy(device: torch.device) -> tuple:
+    """The worklist kernel on a CUDA device: (resident blocks per SM,
+    registers a thread, local memory bytes a thread, threads a block).
+    Its grid is the first times the SM count."""
+    occ = kernel_occupancy("p2p_window_kernel", "psys_p2p_worklist_occupancy", 4, device)
+    if occ[3] != WORKLIST_THREADS:
+        raise RuntimeError(f"the p2p worklist kernel runs {occ[3]} threads a block, "
+                           f"the wrapper assumes {WORKLIST_THREADS}")
+    return occ
+
+
 def p2p_collide_worklist(
     rows_s,  # f32[8, N] sorted rows: pos3 vel3 radius restitution
     cid_s,  # i32[N] sorted linear cell ids, parked particles = num_cells
@@ -304,9 +350,12 @@ def p2p_collide_worklist(
     """Exact contact pass of the first ``n_lanes`` lanes of ``lanes`` over
     their nine full runs (no window), written in place into ``pos_k``,
     ``vel_k`` and ``ncon_k`` (other lanes untouched).  One launch whose
-    grid does not depend on the list, so its length never leaves the
-    device."""
+    grid comes from occupancy, never from the list, so its length never
+    leaves the device (``worklist_schedule``)."""
     n = cid_s.shape[0]
+    if n > MAX_WORKLIST_LANES:
+        raise ValueError(f"{n} lanes: the worklist kernel reads rows [8, N] at "
+                         f"32-bit offsets, so N is at most {MAX_WORKLIST_LANES}")
     if rows_s.device.type == "cpu":
         return p2p_collide_worklist_plain(rows_s, cid_s, offsets, meta, lanes,
                                           n_lanes, pos_k, vel_k, ncon_k, beta=beta)
@@ -334,7 +383,7 @@ def p2p_collide_worklist(
         _ptr(rows_s), n, _ptr(cid_s), _ptr(offsets), int(meta.num_cells),
         *(int(d) for d in meta.dims), _ptr(lanes), _ptr(n_lanes), _ptr(pos_k),
         _ptr(vel_k), _ptr(ncon_k), n, float(np.float32(beta)),
-        _WORKLIST_BLOCKS_PER_SM * _sm_count(dev), _stream(dev),
+        worklist_occupancy(dev)[0] * _sm_count(dev), _stream(dev),
     )
     _raise_on(err, "p2p_collide_worklist")
     LAUNCHES["p2p_collide_worklist"] += 1

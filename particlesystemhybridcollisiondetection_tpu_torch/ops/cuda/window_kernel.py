@@ -487,26 +487,34 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[device]
 
 
-_worklist_occ: dict = {}
+_occupancy: dict = {}
 
 
-def worklist_occupancy(device: torch.device) -> tuple:
-    """The worklist collide kernel on a CUDA device (read once): (resident
-    blocks per SM, registers a thread, local memory bytes a thread).  Its
-    grid is the first times the SM count."""
-    if device not in _worklist_occ:
+def kernel_occupancy(source: str, symbol: str, outputs: int, device) -> tuple:
+    """The ``outputs`` int32 values of the occupancy query ``symbol`` of
+    kernel library ``source`` on a CUDA device (read once), resident
+    blocks per SM first."""
+    key = (source, symbol, device)
+    if key not in _occupancy:
         from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
 
         p = ctypes.POINTER(ctypes.c_int32)
-        fn = build.kernel_function("window_kernel", "psys_window_worklist_occupancy",
-                                   [p, p, p])
-        vals = [ctypes.c_int32() for _ in range(3)]
+        fn = build.kernel_function(source, symbol, [p] * outputs)
+        vals = [ctypes.c_int32() for _ in range(outputs)]
         with torch.cuda.device(device):
-            _raise_on(fn(*(ctypes.byref(v) for v in vals)), "worklist occupancy")
+            _raise_on(fn(*(ctypes.byref(v) for v in vals)), symbol)
         if vals[0].value < 1:
-            raise RuntimeError("the worklist kernel fits no block on an SM")
-        _worklist_occ[device] = tuple(v.value for v in vals)
-    return _worklist_occ[device]
+            raise RuntimeError(f"{symbol}: the kernel fits no block on an SM")
+        _occupancy[key] = tuple(v.value for v in vals)
+    return _occupancy[key]
+
+
+def worklist_occupancy(device: torch.device) -> tuple:
+    """The worklist collide kernel on a CUDA device: (resident blocks per
+    SM, registers a thread, local memory bytes a thread).  Its grid is
+    the first times the SM count."""
+    return kernel_occupancy("window_kernel", "psys_window_worklist_occupancy", 3,
+                            device)
 
 
 def row_split(n: int, sm_count: int) -> int:

@@ -149,6 +149,66 @@ def test_device_fallback_matches_jax_fallback(case, window):
     assert int(ncon.sum()) > 0
 
 
+@pytest.mark.parametrize("case,window,stride", [
+    ("gradient", 128, 7), ("two_blocks", 128, 5), ("gradient", 128, 97),
+])
+def test_worklist_plain_matches_jax_fallback_on_sparse_list(case, window, stride):
+    """The worklist entry point's plain version on a sparse list (every
+    ``stride``-th overflow lane, so a chunk's runs lie far apart) against
+    the JAX package's ``_p2p_chunked_fallback`` with only those lanes
+    marked: the same lanes redone, the rest left as phase 1 wrote them;
+    contact counts exact, pos and vel within the JAX package's p2p
+    tolerances on every lane."""
+    d, margs = CASES[case]()
+    jm, tm = metas(margs)
+    js, ts = both(d)
+    jparts = jp2ps.p2p_window_phase1(js, jm, active=jstate.active_mask(js),
+                                     window=window, interpret=True)
+    parts = tp2ps.p2p_window_phase1(ts, tm, active=active_mask(ts), window=window)
+    listed = parts.overflow.nonzero()[:, 0][::stride]
+    keep = torch.zeros_like(parts.overflow)
+    keep[listed] = True
+    assert 0 < listed.numel() < int(parts.overflow.sum())
+    j_pos, j_vel, j_ncon, j_over = jp2ps._p2p_chunked_fallback(
+        jparts[:3], *jparts[3:6], jnp.asarray(keep.numpy()), 0.5, jparts[3].shape[-1])
+    assert int(j_over) == listed.numel()
+    lanes, n_lanes = twk.compact_lanes(keep)
+    p = _own(parts)
+    tk.p2p_collide_worklist_plain(p.rows_s, p.cid_s, p.offsets, p.meta, lanes, n_lanes,
+                                  p.pos_k, p.vel_k, p.ncon_k, beta=0.5)
+    np.testing.assert_array_equal(p.ncon_k.numpy(), np.asarray(j_ncon))
+    np.testing.assert_allclose(p.pos_k.numpy(), np.asarray(j_pos), **POS_TOL)
+    np.testing.assert_allclose(p.vel_k.numpy(), np.asarray(j_vel), **VEL_TOL)
+    untouched = ~keep
+    for a, b in zip((p.pos_k, p.vel_k, p.ncon_k), (parts.pos_k, parts.vel_k, parts.ncon_k)):
+        assert torch.equal(a[..., untouched], b[..., untouched])
+    assert int(p.ncon_k[listed].sum()) > 0
+
+
+def test_worklist_wrapper_refuses_rows_past_32_bit_offsets():
+    """The worklist kernel reads the rows [8, N] at 32-bit element
+    offsets: the wrapper refuses an N whose 8 rows do not fit, on either
+    route, and takes the largest that does (zero-stride views, nothing
+    allocated at that size)."""
+    _, parts = _case_parts("gradient", 64)
+    lanes, n_lanes = twk.compact_lanes(parts.overflow)
+    for n, ok in ((tk.MAX_WORKLIST_LANES + 1, False), (2**31 // 6, False),
+                  (tk.MAX_WORKLIST_LANES, True)):
+        f32, i32 = torch.zeros(1), torch.zeros(1, dtype=torch.int32)
+        args = (f32.expand(8, n), i32.expand(n), parts.offsets, parts.meta,
+                i32.expand(n), n_lanes.new_zeros(()), f32.expand(3, n),
+                f32.expand(3, n), i32.expand(n))
+        if ok:
+            tk.p2p_collide_worklist(*args, beta=0.5)  # an empty list: no lane
+        else:
+            with pytest.raises(ValueError, match="32-bit"):
+                tk.p2p_collide_worklist(*args, beta=0.5)
+    with pytest.raises(ValueError, match="32-bit"):
+        tk.p2p_collide_worklist(torch.empty(8, 2**28, device="meta"),
+                                torch.empty(2**28, dtype=torch.int32, device="meta"),
+                                *args[2:], beta=0.5)
+
+
 @pytest.mark.parametrize("keys", ["random", "parked", "one_cell"])
 def test_csr_offsets_bitwise(keys):
     """``csr_offsets`` (integer scatter-add and cumsum, no host read)
@@ -266,7 +326,8 @@ def test_captured_p2p_matches_eager_on_card():
     overflow) and the captured "kernel" step equal the same code stepping
     eagerly (``uncaptured``) bit for bit, overflows included, with no host
     read; and the worklist kernel equals its plain version and the
-    host-looped fallback on every lane."""
+    host-looped fallback on every lane, over every overflow lane, a sparse
+    list, one lane and none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from particlesystemhybridcollisiondetection_tpu_torch import convert
@@ -309,16 +370,25 @@ def test_captured_p2p_matches_eager_on_card():
     ts, parts = _case_parts("gradient", 64)
     parts = parts._replace(**{k: getattr(parts, k).cuda() for k in (
         "pos_k", "vel_k", "ncon_k", "rows_s", "overflow", "cid_s", "offsets")})
-    lanes, n_lanes = twk.compact_lanes(parts.overflow)
-    res = []
-    for fn in (tk.p2p_collide_worklist, tk.p2p_collide_worklist_plain):
-        p = _own(parts)
-        fn(p.rows_s, p.cid_s, p.offsets, p.meta, lanes, n_lanes, p.pos_k, p.vel_k,
-           p.ncon_k, beta=0.5)
-        res.append((p.pos_k, p.vel_k, p.ncon_k))
-    res.append(tuple(tp2ps._p2p_chunked_fallback(_own(parts), 0.5, 100)[:3]))
-    torch.cuda.synchronize()
-    assert int(n_lanes) > 0
-    for other in res[1:]:
-        for a, b in zip(res[0], other):
-            assert torch.equal(a, b)
+    # every overflow lane, every seventh (a batch's runs far apart), one,
+    # none: the kernel against its plain version and the host-looped
+    # fallback over the same lanes
+    listed = parts.overflow.nonzero()[:, 0]
+    assert listed.numel() > 0 and listed[::7].numel() > 1
+    for pick in (listed, listed[::7], listed[:1], listed[:0]):
+        keep = torch.zeros_like(parts.overflow)
+        keep[pick] = True
+        lanes, n_lanes = twk.compact_lanes(keep)
+        res = []
+        for fn in (tk.p2p_collide_worklist, tk.p2p_collide_worklist_plain):
+            p = _own(parts)
+            fn(p.rows_s, p.cid_s, p.offsets, p.meta, lanes, n_lanes, p.pos_k, p.vel_k,
+               p.ncon_k, beta=0.5)
+            res.append((p.pos_k, p.vel_k, p.ncon_k))
+        res.append(tuple(tp2ps._p2p_chunked_fallback(
+            _own(parts._replace(overflow=keep)), 0.5, 100)[:3]))
+        torch.cuda.synchronize()
+        assert int(n_lanes) == pick.numel()
+        for other in res[1:]:
+            for a, b in zip(res[0], other):
+                assert torch.equal(a, b), pick.numel()
