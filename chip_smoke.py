@@ -118,8 +118,20 @@ Phases (each raises on failure; nothing is caught and passed over):
      their plain versions on the rank's state at step 650; config 5, 5
      timed steps (500,000 particles per rank), every particle kept and no
      halo or migration overflow.  Each rank's launches on the mesh
-     runner go into the kernel line as ``launches_mesh``.  Last, the
-     ``parallel/dryrun.py`` entry point on the card with 2 ranks;
+     runner go into the kernel line as ``launches_mesh``.  Then one
+     spawn of 3 ranks on the card (``_first_ranks_rank``), meshes over
+     the first n of them as the JAX package's ``make_mesh(n)`` takes the
+     first n devices: over rank 0 alone (its group on NCCL, the runner
+     captured with the all-reduce inside the graph, though the world is
+     gloo), then over ranks 0-1 (gloo, sharing the card); each runs the
+     spatial runner with ``mesh=`` over steps 600-650 (warm pass, then
+     the timed pass, which must repeat it bit for bit), gathered and held
+     bit for bit against the single-device runner on every lane, B1 and
+     B2 against their plain versions on each member's state at step 650,
+     each kernel launched; then config 5 on the first 2 of the 3 ranks,
+     every particle kept; rank 2 sits out every mesh and exits 0.  Last,
+     the ``parallel/dryrun.py`` entry point on the card with 2 ranks, and
+     on the first 2 of 3 ranks;
  10. (after 9; ``drive_protocol``) the reference protocol's particle ladder
      through ``bench/protocol.py::run_protocol`` on DragonScene, plan
      "kernel", no accuracy CSV, launch counters reset just before each
@@ -1674,6 +1686,22 @@ MESH_STEPS = 50  # phase 9: steps 600-650 of the main path, on a mesh
 CONFIG5_STEPS = 5  # few, to keep the whole script near half its time limit
 
 
+def check_rank_kernels(card: str, tag: str, who: str, rec: dict) -> None:
+    """Print and gate one rank's B1 and B2 against their plain versions
+    (``rec["b1"]``, ``rec["b2"]``) and its launches on the mesh runner."""
+    b1, b2 = rec["b1"], rec["b2"]
+    print(f"[{card}]   {who} ({rec['device']}): B1 main vs plain: "
+          f"hit differs on {b1['hit_bad']} lanes, any bit on {b1['bits']}, "
+          f"outside tolerance {b1['far']}, max |diff| {b1['err']:.3e}, hits "
+          f"{b1['hits']}; B2 vs plain: {b2['bad']} lanes differ (misses "
+          f"{b2['misses']}); launches on the mesh runner {rec['launches']}")
+    if b1["hit_bad"] or b1["bits"] or b1["far"] or b2["bad"]:
+        raise RuntimeError(f"{tag}, {who}: a kernel disagrees with its plain "
+                           "version")
+    if min(rec["launches"].values()) <= 0:
+        raise RuntimeError(f"{tag}, {who}: a kernel of the path never launched")
+
+
 def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     """Phase 9 in one rank of ``world`` (the backend is the one
     ``data_parallel.choose_backend`` picked for it): the spatial runner
@@ -1776,6 +1804,178 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
                    os.path.join(workdir, f"mesh_{world}.pt"))
 
 
+FIRST_WORLD = 3  # phase 9's partial meshes: ranks spawned
+FIRST_MESHES = (1, 2)  # the meshes over the first n of them, in turn
+FIRST_CONFIG5 = 2  # config 5's shards in that world
+
+
+def _first_ranks_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 9's meshes over the first n of ``world`` ranks, in one rank:
+    for each n of FIRST_MESHES every rank calls ``make_mesh(n)``; the
+    members run the spatial runner with mesh= from the main path's state
+    at step 600 over MESH_STEPS steps (a warm pass, then the timed pass),
+    gather it to rank 0 and hold B1 and B2 against their plain versions
+    on their own state at step 650; then config 5 on the first
+    FIRST_CONFIG5 ranks.  The other ranks only take part in building
+    each group.  Rank 0 saves the gathered states and every rank's
+    record."""
+    import torch
+    import torch.distributed as dist
+
+    from particlesystemhybridcollisiondetection_tpu_torch.bench.configs import config_5
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import ParticleState
+    from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import (
+        dragon_scene,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+
+    scene = None
+    rec = {"rank": rank, "meshes": {}}
+    states = {}
+    for n in FIRST_MESHES:
+        mesh = dp.make_mesh(n, device_type="cuda")
+        if mesh is None:
+            rec["meshes"][n] = None
+            continue
+        scene = scene or dragon_scene()
+        cfg = scene.config
+        group = mesh.get_group()
+        runner = S.make_sorted_episode_runner(
+            scene.triangles, cfg, cells_lookup="kernel", resort_every="auto",
+            mesh=mesh)
+        glob = ParticleState(*torch.load(os.path.join(workdir, "snap600.pt")))
+        local = dp.shard_state(glob, mesh)
+        warm = runner(local, MESH_STEPS)
+        torch.cuda.synchronize()
+        wk.reset_launches()
+        reads0 = runner.syncs.count
+        t0 = time.perf_counter()
+        out, ovf = runner(local, MESH_STEPS, with_stats=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0 / MESH_STEPS
+        launches = dict(wk.LAUNCHES)
+        reads = (runner.syncs.count - reads0) / MESH_STEPS
+        repeat_diff = sum(lane_diff(torch, a, b) for a, b in zip(out, warm))
+        gathered = dp.gather_state(out, mesh)
+        kw = dict(k_static=runner.sp.meta.max_tris_per_cell, gravity=cfg.gravity,
+                  dt=cfg.dt, backoff=cfg.backoff)
+        b2_args, cases, _, _ = sorted_plan(torch, runner.sp, out)
+        args, w = cases["main"]
+        rec["meshes"][n] = {
+            "mesh_ranks": dist.get_process_group_ranks(group),
+            "mesh_rank": mesh.get_local_rank(), "backend": dist.get_backend(group),
+            "device": str(dp.rank_device(mesh)), "n_local": out.pos.shape[-1],
+            "ms": ms, "overflow": ovf, "reads_per_step": reads,
+            "captured": bool(runner._graphs), "repeat_diff": repeat_diff,
+            "launches": launches, "b1": b1_vs_plain(torch, args, w, kw),
+            "b2": b2_vs_plain(torch, b2_args)}
+        if rank == 0:
+            states[n] = tuple(x.cpu() for x in gathered)
+        del runner, glob, local, warm, out, gathered, b2_args, cases, args
+        torch.cuda.empty_cache()
+    rec["config5"] = config_5(steps=CONFIG5_STEPS, n_shards=FIRST_CONFIG5)
+    recs = [None] * world
+    dist.all_gather_object(recs, rec)
+    if rank == 0:
+        torch.save({"states": states, "ranks": recs},
+                   os.path.join(workdir, f"first_of_{world}.pt"))
+
+
+def drive_first_ranks(torch, card: str, workdir: str, snap650, ovf_single) -> dict:
+    """Phase 9's meshes over the first n of FIRST_WORLD ranks on the card
+    (``_first_ranks_rank``): each gathered state at step 650 must equal
+    the single-device runner's on every lane, each member's B1 and B2
+    their plain versions, each kernel must launch, the mesh over one rank
+    must be NCCL and captured where ``choose_backend`` gives it NCCL,
+    config 5 must keep every particle on the first FIRST_CONFIG5 ranks,
+    and every other rank must sit out.  Returns each mesh's per-member
+    launches."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.parallel.dryrun import (
+        run_ranks,
+    )
+
+    world = FIRST_WORLD
+    t0 = time.perf_counter()
+    run_ranks(_first_ranks_rank, world, workdir, device_type="cuda")
+    wall = time.perf_counter() - t0
+    res = torch.load(os.path.join(workdir, f"first_of_{world}.pt"))
+    recs = res["ranks"]
+    n_all = snap650.pos.shape[-1]
+    mask = active_mask(snap650)
+    world_backend = dp.choose_backend("cuda", world)
+    print(f"[{card}] phase 9, the first n of {world} ranks ({wall:.1f} s with "
+          f"spawn; the world over {world_backend}): meshes over the first "
+          + ", ".join(str(n) for n in FIRST_MESHES) + " ranks")
+    launches = {}
+    for n in FIRST_MESHES:
+        backend = dp.choose_backend("cuda", n)
+        tag = f"first {n} of {world} ranks over {backend}"
+        members = [r["meshes"][n] for r in recs[:n]]
+        if any(m is None for m in members) or any(
+                r["meshes"][n] is not None for r in recs[n:]):
+            raise RuntimeError(f"{tag}: the mesh is not the first {n} ranks")
+        got = [x.to(snap650.pos.device) for x in res["states"][n]]
+        diff = sum(lane_diff(torch, g, w) for g, w in zip(got, snap650))
+        ovf = members[0]["overflow"]
+        print(f"[{card}] phase 9, {tag}: spatial runner with mesh=, steps "
+              f"600-650, {n_all // n} particles per member: lanes differing from "
+              f"the single-device runner {diff} of {n_all} (collisions "
+              f"{int(got[2][mask].sum())} vs {int(snap650.collisions[mask].sum())}); "
+              f"overflow summed over members and steps {sum(ovf)} (single device "
+              f"{sum(ovf_single)}); ms/step by member (timed pass) "
+              + ", ".join(f"{m['ms']:.3f}" for m in members)
+              + "; host reads per step " + ", ".join(
+                  f"{m['reads_per_step']:.4f}" for m in members)
+              + "; step captured " + ", ".join(str(m["captured"]) for m in members)
+              + ("; members share one card: not a multi-GPU number"
+                 if n > torch.cuda.device_count() else ""))
+        if diff:
+            raise RuntimeError(f"{tag}: mesh runner differs from the single-device "
+                               f"runner on {diff} lanes")
+        if any(m["mesh_ranks"] != list(range(n)) or m["backend"] != backend
+               or m["overflow"] != ovf or m["repeat_diff"] for m in members):
+            raise RuntimeError(f"{tag}: members disagree on the group, backend "
+                               "or overflow, or a pass did not repeat")
+        if any(m["reads_per_step"] > 1 or m["captured"] != (backend == "nccl")
+               for m in members):
+            raise RuntimeError(f"{tag}: the mesh runner read more than the flag, "
+                               "or was not captured as its backend implies")
+        for m in members:
+            check_rank_kernels(card, tag, f"member {m['mesh_rank']}", m)
+        launches[f"first{n}_of{world}_{backend}"] = [m["launches"] for m in members]
+    c5 = [r["config5"] for r in recs]
+    members, rest = c5[:FIRST_CONFIG5], c5[FIRST_CONFIG5:]
+    backend = dp.choose_backend("cuda", FIRST_CONFIG5)
+    print(f"[{card}] phase 9, first {FIRST_CONFIG5} of {world} ranks over {backend}: "
+          f"config 5, {members[0]['particles']} particles, {CONFIG5_STEPS} timed "
+          f"steps: alive after {members[0]['active_particles']}; overflow halo "
+          f"{members[0]['halo_overflow_last_step']}, migrate "
+          f"{members[0]['migrate_overflow_last_step']}, cell "
+          f"{members[0]['cell_overflow_last_step']}; ms/step "
+          + ", ".join(f"{1000.0 / c['steps_per_sec']:.3f}" for c in members)
+          + "; the other ranks: " + ", ".join(json.dumps(c) for c in rest))
+    if any(c.get("sat_out") or c["active_particles"] != c["particles"]
+           or c["halo_overflow_last_step"] or c["migrate_overflow_last_step"]
+           or c["shards"] != FIRST_CONFIG5 or c["backend"] != backend
+           for c in members):
+        raise RuntimeError("config 5 on the first ranks lost particles, overflowed "
+                           "or ran on the wrong group")
+    if any(c != {"config": 5, "shards": FIRST_CONFIG5, "rank": r, "sat_out": True}
+           for r, c in enumerate(rest, FIRST_CONFIG5)):
+        raise RuntimeError("a rank outside config 5's mesh did not sit out")
+    return launches
+
+
 def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dict:
     """Phase 9: the multi-device paths, in ranks spawned after the kernel
     build (so no rank builds) from the main path's state at step 600.
@@ -1863,18 +2063,7 @@ def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dic
             raise RuntimeError(f"{tag}: the mesh runner read or summed on the host, "
                                "or was not captured as its backend implies")
         for r in recs:
-            b1, b2 = r["b1"], r["b2"]
-            print(f"[{card}]   rank {r['rank']} ({r['device']}): B1 main vs plain: "
-                  f"hit differs on {b1['hit_bad']} lanes, any bit on {b1['bits']}, "
-                  f"outside tolerance {b1['far']}, max |diff| {b1['err']:.3e}, hits "
-                  f"{b1['hits']}; B2 vs plain: {b2['bad']} lanes differ (misses "
-                  f"{b2['misses']}); launches on the mesh runner {r['launches']}")
-            if b1["hit_bad"] or b1["bits"] or b1["far"] or b2["bad"]:
-                raise RuntimeError(f"{tag}, rank {r['rank']}: a kernel disagrees "
-                                   "with its plain version")
-            if min(r["launches"].values()) <= 0:
-                raise RuntimeError(f"{tag}, rank {r['rank']}: a kernel of the "
-                                   "path never launched")
+            check_rank_kernels(card, tag, f"rank {r['rank']}", r)
         launches[f"world{world}_{backend}"] = [r["launches"] for r in recs]
         c5 = [r["config5"] for r in recs]
         print(f"[{card}] phase 9, {tag}: config 5, {c5[0]['particles']} particles, "
@@ -1889,9 +2078,20 @@ def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dic
                or c["backend"] != backend for c in c5):
             raise RuntimeError(f"{tag}: config 5 lost particles or overflowed")
     t0 = time.perf_counter()
+    launches.update(drive_first_ranks(torch, card, workdir, snap650, ovf_single))
+    added = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dryrun_multichip(2)
     print(f"[{card}] phase 9: the dry-run entry point, 2 ranks over "
           f"{dp.choose_backend('cuda', 2)}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(2, world=FIRST_WORLD)
+    dt = time.perf_counter() - t0
+    added += dt
+    print(f"[{card}] phase 9: the dry-run entry point, the first 2 of "
+          f"{FIRST_WORLD} ranks over {dp.choose_backend('cuda', 2)}: {dt:.1f} s")
+    print(f"[{card}] phase 9: the meshes over the first ranks of "
+          f"{FIRST_WORLD} and their dry run added {added:.1f} s")
     print(f"[{card}] phase 9 (multi-device paths): "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches

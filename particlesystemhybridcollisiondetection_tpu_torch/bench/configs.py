@@ -179,7 +179,7 @@ def _process_group(device_type: str):
     """The default process group: the caller's if it made one; under
     ``torchrun`` (``WORLD_SIZE`` in the environment) one joined from the
     environment; else a group of one rank in this process.  A group made
-    here is destroyed on the way out.  Yields the backend's name."""
+    here is destroyed on the way out."""
     import torch.distributed as dist
 
     from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
@@ -187,12 +187,11 @@ def _process_group(device_type: str):
     )
 
     if dist.is_initialized():
-        yield dist.get_backend()
+        yield
         return
     if "WORLD_SIZE" in os.environ:
-        backend = dp.init_ranks(int(os.environ["RANK"]),
-                                int(os.environ["WORLD_SIZE"]), "env://",
-                                device_type)
+        dp.init_ranks(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                      "env://", device_type)
     else:
         backend = dp.choose_backend(device_type, 1)
         if device_type == "cuda":
@@ -200,7 +199,7 @@ def _process_group(device_type: str):
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
     try:
-        yield backend
+        yield
     finally:
         dist.destroy_process_group()
 
@@ -209,11 +208,15 @@ def config_5(steps: int = 100, n: Optional[int] = None,
              n_shards: Optional[int] = None, device="cuda") -> dict:
     """Heterogeneous radii/restitution, the box split into one slab per
     rank with a halo exchange (parallel/domain.py): 500k particles per
-    rank, a box 40 units wide per rank.  The ranks are the process
-    group's (``torchrun --nproc-per-node=N``); run alone, a group of
-    one.  ``n_shards`` may only restate the world size.  Every rank
-    returns the same dict; ``active_particles`` counts the particles
-    alive after the last step, over all ranks (conservation)."""
+    rank, a box 40 units wide per rank.  The ranks are the first
+    ``n_shards`` of the process group's (``torchrun
+    --nproc-per-node=N``; all of them by default), as the JAX package
+    meshes its first ``n_shards`` devices; run alone, a group of one.
+    Every rank of the group calls it.  Every rank of the mesh returns
+    the same dict; ``active_particles`` counts the particles alive after
+    the last step, over all of them (conservation), and ``backend`` is
+    the mesh's.  A rank outside the mesh builds nothing and returns
+    ``{"config": 5, "shards": ..., "rank": ..., "sat_out": True}``."""
     import torch.distributed as dist
 
     from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
@@ -223,10 +226,15 @@ def config_5(steps: int = 100, n: Optional[int] = None,
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
 
     dev = resolve_device(device)
-    with _process_group(dev.type) as backend:
-        shards = dist.get_world_size()
-        if n_shards is not None and n_shards != shards:
-            raise ValueError(f"n_shards={n_shards} on a group of {shards} ranks")
+    with _process_group(dev.type):
+        world = dist.get_world_size()
+        shards = world if n_shards is None else n_shards
+        if shards > world:
+            raise ValueError(f"n_shards={shards} on a group of {world} ranks")
+        mesh = dp.make_mesh(shards, axis_name=dom.AXIS, device_type=dev.type)
+        if mesh is None:
+            return {"config": 5, "shards": shards, "rank": dist.get_rank(),
+                    "sat_out": True}
         n = n or 500_000 * shards
         side = 40.0 * shards
         box_lo, box_hi = (0.0, 0.0, 0.0), (side, 80.0, 40.0)
@@ -239,7 +247,6 @@ def config_5(steps: int = 100, n: Optional[int] = None,
             migrate_capacity=max(2048, cap // 8),
             cell_size=2 * 0.4 * 1.3,
         )
-        mesh = dp.make_mesh(axis_name=dom.AXIS, device_type=dev.type)
         # every rank draws the same global state from the seed and keeps
         # its own slab's block
         state = _box_state(n, box_lo, box_hi, 0.4, 0.3, hetero=True,
@@ -259,7 +266,7 @@ def config_5(steps: int = 100, n: Optional[int] = None,
             "config": 5,
             "particles": n,
             "shards": shards,
-            "backend": backend,
+            "backend": dist.get_backend(mesh.get_group()),
             "steps_per_sec": steps / dt,
             "particle_steps_per_sec": steps / dt * n,
             "halo_overflow_last_step": int(stats[0]),

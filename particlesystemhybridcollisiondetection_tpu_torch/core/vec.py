@@ -25,8 +25,12 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def norm2(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
 def norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(dot(a, a))
+    return torch.sqrt(norm2(a))
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
@@ -43,3 +47,12 @@ def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Select on a [...] mask between [3, ...] vector fields."""
     return torch.where(mask[None], a, b)
+
+
+def scale(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Multiply a [3, ...] vector field by a scalar field [...]."""
+    return v * s[None]
+
+
+def vec3(x, y, z, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([x, y, z], dtype=dtype, device=device)

@@ -242,6 +242,50 @@ def cube_sphere(n: int = 64, radius: float = 1.0) -> TriangleMesh:
     )
 
 
+
+def torus_knot(
+    p: int = 2,
+    q: int = 3,
+    tube_radius: float = 0.35,
+    knot_radius: float = 1.0,
+    segments: int = 512,
+    tube_segments: int = 64,
+) -> TriangleMesh:
+    """High-poly smooth closed surface: a tube of ``tube_segments``
+    around a (p, q) torus knot sampled at ``segments`` points (65,536
+    triangles at the defaults), a procedural collider.  Equal bit
+    for bit to the JAX package's (the same float operations in the same
+    order; the faces in the same order, built without a Python loop)."""
+    t = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    r = knot_radius * (2 + np.cos(q * t)) / 3.0
+    center = np.stack(
+        [r * np.cos(p * t), r * np.sin(q * t) * 0.6, r * np.sin(p * t)], axis=-1
+    )
+    # Frenet-ish frame
+    nxt = np.roll(center, -1, axis=0)
+    tang = nxt - center
+    tang /= np.linalg.norm(tang, axis=-1, keepdims=True)
+    up = np.array([0.0, 1.0, 0.0])
+    side = np.cross(tang, up)
+    side /= np.linalg.norm(side, axis=-1, keepdims=True) + 1e-12
+    upv = np.cross(side, tang)
+
+    ang = np.linspace(0, 2 * np.pi, tube_segments, endpoint=False)
+    circ = (
+        np.cos(ang)[None, :, None] * side[:, None, :]
+        + np.sin(ang)[None, :, None] * upv[:, None, :]
+    )
+    verts = (center[:, None, :] + tube_radius * circ).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(segments, dtype=np.int64),
+                       np.arange(tube_segments, dtype=np.int64), indexing="ij")
+    a = i * tube_segments + j
+    b = i * tube_segments + (j + 1) % tube_segments
+    c = ((i + 1) % segments) * tube_segments + j
+    d = ((i + 1) % segments) * tube_segments + (j + 1) % tube_segments
+    faces = np.stack([np.stack([a, c, b], -1), np.stack([b, c, d], -1)], -2)
+    return TriangleMesh(verts, faces.reshape(-1, 3), "torus_knot")
+
+
 # --- OBJ -------------------------------------------------------------------
 
 

@@ -22,11 +22,16 @@ decomposition with a halo exchange between neighbour ranks (for
 particle-particle interaction at scale) lives in parallel/domain.py.
 
 The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` over the
-default process group's world.  The backend is chosen from the device
-count (``choose_backend``): NCCL when each rank has a GPU of its own,
-gloo for CPU ranks and for several ranks sharing one card.  Under gloo
-the collectives take host tensors, so a rank on a GPU copies what it
-sends and receives through host memory; its compute stays on the card.
+first n ranks of the default process group's world (``make_mesh(n)``,
+as the JAX package's takes the first n devices; all of them by
+default).  Every function here uses the mesh's own group, size and rank,
+never the world's.  The backend of a mesh's group is chosen from the
+device count (``choose_backend``) for the group's members: NCCL when
+each member has a GPU of its own, gloo for CPU ranks and for several
+ranks sharing one card.  So a mesh over part of a gloo world can run
+over NCCL.  Under gloo the collectives take host tensors, so a rank on a
+GPU copies what it sends and receives through host memory; its compute
+stays on the card.
 
 The ranks' GPUs are counted on the rank's own host: under ``torchrun``
 from ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``, which ``parallel/dryrun.py``
@@ -62,14 +67,17 @@ def _local(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
-def choose_backend(device_type: str, world_size: int) -> str:
-    """"nccl" when each of the ranks on this host (``LOCAL_WORLD_SIZE``,
-    else all ``world_size``) has a GPU of its own; "gloo" for CPU ranks
-    and for ranks sharing a card (NCCL refuses two ranks on one GPU).
-    Decided from the device count, never by trying."""
+def choose_backend(device_type: str, n_ranks: int) -> str:
+    """The backend for a group of the first ``n_ranks`` ranks of the
+    world (the whole world, or a mesh over part of it): "nccl" when each
+    of its members on this host (at most ``LOCAL_WORLD_SIZE`` of them,
+    where the launcher set it) has a GPU of its own; "gloo" for CPU
+    ranks and for members sharing a card (NCCL refuses two ranks on one
+    GPU).  Decided from the device count, never by trying."""
     if device_type == "cuda":
         resolve_device("cuda")
-        if torch.cuda.device_count() >= _local("LOCAL_WORLD_SIZE", world_size):
+        on_host = min(n_ranks, _local("LOCAL_WORLD_SIZE", n_ranks))
+        if torch.cuda.device_count() >= on_host:
             return "nccl"
     return "gloo"
 
@@ -93,20 +101,39 @@ def init_ranks(rank: int, world_size: int, init_method: str,
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = DATA_AXIS,
-              device_type: str = "cuda") -> DeviceMesh:
-    """1-D mesh over the default process group's world (which must be
-    initialized).  ``n_devices`` may only restate the world size: a mesh
-    over part of the world would need the other ranks to take part in
-    building it.  A GPU rank runs on ``cuda:{local rank % device_count}``;
-    the CPU only when ``device_type="cpu"``."""
+              device_type: str = "cuda") -> DeviceMesh | None:
+    """1-D mesh over the first ``n_devices`` ranks of the default process
+    group's world (which must be initialized; all of it by default), as
+    the JAX package's ``make_mesh(n)`` takes the first n devices.
+
+    Every rank of the world calls it: building a group is collective.
+    Ranks 0..n-1 get the mesh; the others take part in building its
+    group and get ``None``, and sit out whatever runs on the mesh.  With
+    n below the world size the group's backend is ``choose_backend``'s
+    for its n members, and an NCCL group makes its communicator here (a
+    communicator made on the group's first collective inside a CUDA
+    graph's capture would break the capture).  n above the world size
+    raises (the JAX package would take fewer devices than asked).  A GPU
+    rank runs on ``cuda:{local rank % device_count}``; the CPU only when
+    ``device_type="cpu"``."""
     world = dist.get_world_size()
-    if n_devices is not None and n_devices != world:
-        raise ValueError(f"the mesh spans the whole world ({world} ranks), "
-                         f"not {n_devices}")
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"make_mesh({n}): a mesh over {n} ranks, but the "
+                         f"world has {world}")
     if device_type == "cuda":
         resolve_device("cuda")
         _select_gpu(dist.get_rank())
-    return init_device_mesh(device_type, (world,), mesh_dim_names=(axis_name,))
+    if n == world:
+        return init_device_mesh(device_type, (world,), mesh_dim_names=(axis_name,))
+    backend = choose_backend(device_type, n)
+    group = dist.new_group(list(range(n)), backend=backend)
+    if dist.get_rank() >= n:
+        return None
+    mesh = DeviceMesh.from_group(group, device_type, mesh_dim_names=(axis_name,))
+    if backend == "nccl":
+        dist.all_reduce(torch.zeros(1, device=rank_device(mesh)), group=group)
+    return mesh
 
 
 def rank_device(mesh: DeviceMesh) -> torch.device:
@@ -117,6 +144,9 @@ def rank_device(mesh: DeviceMesh) -> torch.device:
 
 
 def check_mesh(mesh) -> DeviceMesh:
+    if mesh is None:
+        raise TypeError("no mesh: this rank is outside the mesh (make_mesh "
+                        "returned None) and has nothing to run on it")
     if not isinstance(mesh, DeviceMesh) or mesh.ndim != 1:
         raise TypeError(f"mesh must be a 1-D torch.distributed DeviceMesh, "
                         f"got {mesh!r}")

@@ -4,7 +4,8 @@ For particle-particle interaction at multi-device scale, particles are
 owned by the rank whose spatial slab contains them:
 
   * the world X range is split into ``n_shards`` equal slabs, one per
-    rank of a 1-D ``DeviceMesh``;
+    rank of a 1-D ``DeviceMesh`` (the first ``n_shards`` ranks of the
+    process group's world; ranks outside the mesh take no part);
   * each step, every rank runs the local p2p + integrate pipeline on its
     own particles plus *ghost* copies of its neighbours' boundary
     particles, received with ``batch_isend_irecv``, so cross-boundary
@@ -125,10 +126,12 @@ def _empty_rows(n: int, device) -> ParticleState:
 
 
 def _exchange(mesh: DeviceMesh, to_left: ParticleState, to_right: ParticleState):
-    """Send ``to_left`` to rank - 1 and ``to_right`` to rank + 1; return
-    (from_left, from_right), each a block of sentinel rows where there is
-    no neighbour.  Every rank calls it at the same point of every step.
-    Under gloo the buffers go through host memory."""
+    """Send ``to_left`` to mesh rank - 1 and ``to_right`` to mesh rank
+    + 1; return (from_left, from_right), each a block of sentinel rows
+    where there is no neighbour.  Every rank of the mesh calls it at the
+    same point of every step (torch requires every member of a group to
+    take part in the group's first ``batch_isend_irecv``).  Under gloo
+    the buffers go through host memory."""
     me, world = mesh.get_local_rank(), mesh.size()
     group = mesh.get_group()
     host = dp.through_host(mesh)
@@ -142,9 +145,11 @@ def _exchange(mesh: DeviceMesh, to_left: ParticleState, to_right: ParticleState)
         if host:
             send = send.cpu()
         recv[peer] = torch.empty_like(send)
-        # the mesh spans the world, so its ranks are the global ranks
-        ops.append(dist.P2POp(dist.isend, send, peer, group))
-        ops.append(dist.P2POp(dist.irecv, recv[peer], peer, group))
+        # P2POp names its peer by global rank; the mesh's ranks are its
+        # group's
+        to = dist.get_global_rank(group, peer)
+        ops.append(dist.P2POp(dist.isend, send, to, group))
+        ops.append(dist.P2POp(dist.irecv, recv[peer], to, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -164,7 +169,7 @@ def make_domain_step(dcfg: DomainConfig, cfg: SimConfig, mesh: DeviceMesh):
     Returned stats: i32[3] = (halo_overflow, migrate_overflow,
     grid_cell_overflow), summed over the mesh (the same on every rank).
     Collectives per step: two neighbour exchanges and one all_reduce,
-    reached by every rank on every step.
+    reached by every rank of the mesh on every step.
     """
     dp.check_mesh(mesh)
     if mesh.size() != dcfg.n_shards:

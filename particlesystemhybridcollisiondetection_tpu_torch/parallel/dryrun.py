@@ -1,17 +1,22 @@
 """Multi-rank dry run, and the helper that spawns ranks.
 
-``dryrun_multichip(n)`` spawns ``n`` ranks, on the card unless the
-caller asks for the CPU (there gloo ranks, as the JAX package runs the
-same dry run on a virtual CPU mesh), and drives, in each rank: the
-data-parallel hybrid step on the 16 x 16 sample scene, a collision count
-summed over the ranks, one domain-decomposed p2p step (halo exchange and
-migration), the sorted step with ``mesh=`` and the persistent runner with
-``mesh=`` (``resort_every=2``, 2 steps).  The backend is
-``data_parallel.choose_backend``'s: on one card several ranks share it
-over gloo.
+``dryrun_multichip(n)`` spawns ``n`` ranks (or ``world`` ranks, of which
+the first ``n`` make the meshes, as the JAX package's dry run meshes the
+first n devices of a host with more), on the card unless the caller
+asks for the CPU (there gloo ranks, as the JAX package runs the same dry
+run on a virtual CPU mesh), and drives, in each rank of the mesh: the
+data-parallel hybrid step on the 16 x 16 sample scene, with a check that
+each rank's output slice is the one ``shard_state`` lays out, a
+collision count summed over the ranks, one domain-decomposed p2p step
+(halo exchange and migration), the sorted step with ``mesh=`` and the
+persistent runner with ``mesh=`` (``resort_every=2``, 2 steps).  The
+ranks past the first ``n`` take part in building the meshes' groups and
+then idle.  The backend is ``data_parallel.choose_backend``'s for the
+mesh's ranks: on one card several ranks share it over gloo.
 
     python -m particlesystemhybridcollisiondetection_tpu_torch.parallel.dryrun 4
     python -m particlesystemhybridcollisiondetection_tpu_torch.parallel.dryrun 4 --device cpu
+    python -m particlesystemhybridcollisiondetection_tpu_torch.parallel.dryrun 2 --world 3 --device cpu
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ def _sample_scene():
     return dataclasses.replace(scene, config=cfg)
 
 
-def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
+def _dryrun_rank(rank: int, world: int, n: int, device_type: str) -> None:
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
         ParticleState,
         active_mask,
@@ -83,17 +88,33 @@ def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
     )
     from particlesystemhybridcollisiondetection_tpu_torch.parallel import domain as dom
 
+    # every rank of the world builds both meshes' groups; a rank outside
+    # them has nothing more to do
+    mesh = dp.make_mesh(n, device_type=device_type)
+    dmesh = dp.make_mesh(n, axis_name=dom.AXIS, device_type=device_type)
+    if mesh is None:
+        return
     scene = _sample_scene()
     cfg = scene.config
-    mesh = dp.make_mesh(world, device_type=device_type)
     dev = dp.rank_device(mesh)
     # one 1024 block per rank: the padding the sorted pipeline needs
-    state = spawn_grid(cfg, layers_y=1, pad_multiple=world * 1024, device=dev)
+    state = spawn_grid(cfg, layers_y=1, pad_multiple=n * 1024, device=dev)
 
     # --- path 1: data parallel hybrid step, replicated scene tables ---
     step = dp.make_dp_step(make_method_step(scene, "hybrid", camera_index=0,
                                             device=dev), mesh)
-    out = step(dp.shard_state(state, mesh))
+    local = dp.shard_state(state, mesh)
+    out = step(local)
+    # the output is this rank's contiguous slice, where shard_state cut
+    # the input (the JAX dry run's check of the output's sharding)
+    m, r = state.pos.shape[-1] // n, mesh.get_local_rank()
+    whole = dp.gather_state(out, mesh)
+    if (out.pos.shape[-1] != m or out.pos.device != dev
+            or not torch.equal(local.pos, state.pos[:, r * m:(r + 1) * m])
+            or not all(torch.equal(a[..., r * m:(r + 1) * m], b)
+                       for a, b in zip(whole, out))):
+        raise RuntimeError(f"rank {rank}: the output is not the slice "
+                           f"[{r * m}, {(r + 1) * m}) that shard_state lays out")
     total = dp.sum_ints(int(out.collisions.sum()), mesh)
     if total < 0 or not torch.isfinite(out.pos[:, active_mask(out)]).all():
         raise RuntimeError(f"rank {rank}: hybrid step gave collisions {total} "
@@ -101,24 +122,23 @@ def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
 
     # --- path 2: domain decomposition, halo exchange and migration ---
     rng = np.random.default_rng(0)
-    n = 32 * world
+    n_tiny = 32 * n
     tiny = ParticleState(
         pos=torch.from_numpy(np.stack([
-            rng.uniform(0.5, 4.0 * world - 0.5, n),
-            rng.uniform(2, 7, n),
-            rng.uniform(0.5, 3.5, n),
+            rng.uniform(0.5, 4.0 * n - 0.5, n_tiny),
+            rng.uniform(2, 7, n_tiny),
+            rng.uniform(0.5, 3.5, n_tiny),
         ]).astype(np.float32)),
-        vel=torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)),
-        collisions=torch.zeros((n,), dtype=torch.int32),
-        radius=torch.full((n,), 0.3, dtype=torch.float32),
-        restitution=torch.full((n,), 0.4, dtype=torch.float32),
+        vel=torch.from_numpy(rng.normal(size=(3, n_tiny)).astype(np.float32)),
+        collisions=torch.zeros((n_tiny,), dtype=torch.int32),
+        radius=torch.full((n_tiny,), 0.3, dtype=torch.float32),
+        restitution=torch.full((n_tiny,), 0.4, dtype=torch.float32),
     )
     dcfg = dom.DomainConfig(
-        box_lo=(0.0, 0.0, 0.0), box_hi=(4.0 * world, 8.0, 4.0),
-        n_shards=world, shard_capacity=128, halo_capacity=64,
+        box_lo=(0.0, 0.0, 0.0), box_hi=(4.0 * n, 8.0, 4.0),
+        n_shards=n, shard_capacity=128, halo_capacity=64,
         migrate_capacity=64, cell_size=0.7,
     )
-    dmesh = dp.make_mesh(world, axis_name=dom.AXIS, device_type=device_type)
     dstate = dom.shard_domain_state(dom.distribute(tiny, dcfg), dmesh)
     dstate, stats = dom.make_domain_step(dcfg, cfg, dmesh)(dstate)
     if int(stats[1]) != 0:
@@ -126,7 +146,6 @@ def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
 
     # --- path 3: the sorted pipeline with mesh=, then the persistent
     # runner (per-rank persistent order, rank-local id restore) ---
-    local = dp.shard_state(state, mesh)
     sout = make_spatial_step_sorted(scene.triangles, cfg, mesh=mesh,
                                     device=dev)(local)
     runner = make_sorted_episode_runner(scene.triangles, cfg, resort_every=2,
@@ -136,23 +155,31 @@ def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
         if not torch.isfinite(s.pos[:, active_mask(s)]).all():
             raise RuntimeError(f"rank {rank}: {name} gave non-finite positions")
     if rank == 0:
-        print(f"dryrun_multichip OK: {world} {dist.get_backend()} ranks on "
-              f"{device_type}; data "
+        of = "" if n == world else f" (the first {n} of {world})"
+        print(f"dryrun_multichip OK: {n} {dist.get_backend(mesh.get_group())} "
+              f"ranks on {device_type}{of}; data "
               f"parallel hybrid step (collisions summed: {total}) + "
               f"domain-decomposed p2p step (halo exchange + migration, stats "
               f"{stats.tolist()}) + sorted step with mesh= + persistent "
               f"runner with mesh= all executed", flush=True)
 
 
-def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> None:
-    """Spawn ``n_devices`` ranks on ``device_type`` and run the dry run in
-    each; raises if any rank fails.  The kernels are built and the camera
-    baked here first, so the ranks only load the builds and read the bake
-    cache."""
+def dryrun_multichip(n_devices: int, device_type: str = "cuda",
+                     world: int | None = None) -> None:
+    """Spawn ``world`` ranks (default ``n_devices``) on ``device_type``
+    and run the dry run on a mesh over the first ``n_devices`` of them;
+    the others take part in building its groups and idle.  Raises if
+    any rank fails, or if ``n_devices`` exceeds ``world``.  The kernels
+    are built and the camera baked here first, so the ranks only load
+    the builds and read the bake cache."""
     from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
         bake_camera,
     )
 
+    n = int(n_devices)
+    world = n if world is None else int(world)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh over {n} ranks in a world of {world}")
     if device_type == "cuda":
         from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
 
@@ -160,13 +187,15 @@ def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> None:
     scene = _sample_scene()
     bake_camera(scene.triangles, scene.cameras[0],
                 getattr(scene, "corner_normals", None), device=device_type)
-    run_ranks(_dryrun_rank, int(n_devices), device_type,
-              device_type=device_type)
+    run_ranks(_dryrun_rank, world, n, device_type, device_type=device_type)
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n_devices", type=int, nargs="?", default=2)
+    ap.add_argument("--world", type=int, default=None,
+                    help="ranks to spawn (default n_devices); the first "
+                         "n_devices make the mesh, the rest idle")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     a = ap.parse_args()
-    dryrun_multichip(a.n_devices, a.device)
+    dryrun_multichip(a.n_devices, a.device, a.world)

@@ -328,8 +328,9 @@ def test_dryrun_multichip_two_ranks(bake_cache, capfd):
 
 def test_one_rank_helpers_and_refusals(scene):
     """In this process, a group of one rank: shard_state / gather_state
-    round trip, sum_ints and sum_int_list, the divisibility check, the backend choice and
-    the mesh type check of the sorted factories."""
+    round trip, sum_ints and sum_int_list, the divisibility check, the
+    refusal of a mesh over more ranks than the world holds, the backend
+    choice and the mesh type check of the sorted factories."""
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = dp.make_mesh(device_type="cpu")
@@ -342,7 +343,9 @@ def test_one_rank_helpers_and_refusals(scene):
         assert dp.sum_int_list([3, 0, 5], mesh) == [3, 0, 5]
         with pytest.raises(ValueError, match="divide"):
             dp.shard_state(ParticleState(*(x[..., :1000] for x in s)), mesh)
-        with pytest.raises(ValueError, match="whole world"):
+        # a mesh takes the first n ranks: n above the world's raises
+        # (the n below it is in test_torch_partial_mesh.py)
+        with pytest.raises(ValueError, match="mesh over 2 ranks, but the world has 1"):
             dp.make_mesh(2, device_type="cpu")
         assert dp.choose_backend("cpu", 4) == "gloo"
         with pytest.raises(TypeError, match="DeviceMesh"):
