@@ -7,7 +7,7 @@ On a host with several cards phase 9 adds a run over NCCL across them.
 
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
-     versions, and build the three CUDA sources of ops/cuda/csrc (ptxas
+     versions, and build the four CUDA sources of ops/cuda/csrc (ptxas
      usage by kernel; B1's worklist collide kernel's and B3's worklist
      kernel's occupancy and instructions per candidate from the SASS,
      ``sass_counts``, for B3 also those of a candidate that fails the
@@ -22,7 +22,9 @@ Phases (each raises on failure; nothing is caught and passed over):
      reads per step (steps 1-151, 151-700); check no NaN on active lanes,
      sentinels intact, collisions > 0, overflow in steps 600-700, and each
      kernel launched as a runner step launches it (launch counters, which
-     count replays, reset just before); then run the same 700 steps with
+     count replays, reset just before; every call is made with stats, so
+     the runner replays its stamped graphs, and the telemetry kernels'
+     launches, counted apart, must be five stamps a step); then run the same 700 steps with
      capture off (``uncaptured``) and hold the final state and the
      overflow sequence bit for bit against the captured run;
   3. on the states at step 650 and at step 700 (denser), hold each of
@@ -47,7 +49,10 @@ Phases (each raises on failure; nothing is caught and passed over):
      resort_every "auto"; launch counters reset just before), print the
      undecided share, host reads and overflow, and check it as phase 2
      does, with the undecided share at step 700 strictly between 0 and
-     1, and host reads per step beside the spatial runner's; run the
+     1, and host reads per step beside the spatial runner's (steps
+     600-700 with stats: six stamps and one undecided count a step, and
+     the ring's undecided counter of step 600 equal to the stage's
+     undecided real lanes recounted on its input); run the
      screen-space method 700 steps at the same width; print the three
      methods' collisions; hold B1 (masked main plan, rescue phase 1), the
      worklist entry point and B2 against their plain versions on the
@@ -150,7 +155,13 @@ Phases (each raises on failure; nothing is caught and passed over):
      methods on all four cameras, 50 steps: a row for each, and each
      camera's undecided mask on the k = 7 state (active lanes, and the
      falling sentinels, which must stay out of the hybrid's plan).  The
-     launches go into the kernel line as the ":protocol" entries;
+     launches go into the kernel line as the ":protocol" entries.  The
+     tapped episode runs with stats (five stamps a step, counted); on
+     "Main Camera"'s undecided mask of the k = 7 state at step 2001
+     (2,097,152 lanes, sentinels among them) the telemetry kernels are
+     held against their plain versions (``telemetry_case``: the count of
+     undecided real lanes, and a step's last stamp with the overflow and
+     the worklist's lane count of step 1500) and timed;
  11. (after 10; ``drive_headline``) the headline benchmark: ``python -m
      ….bench.headline`` in its own process at its defaults (DragonScene at
      1,048,576 particles, 151 steps, the settled probe over 620 + 100
@@ -174,7 +185,8 @@ Phases (each raises on failure; nothing is caught and passed over):
      8,192-lane chunk's numbers;
      the explicit-plan entry point of the p2p kernel, which no main path
      launches, and its worklist entry point are listed under that
-     kernel's entry).
+     kernel's entry; the telemetry kernels, "path": "telemetry", last,
+     with their launches on the main, hybrid and k = 7 paths).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
 """
@@ -431,6 +443,76 @@ def check_runner_launches(tag: str, launches: dict, steps: int) -> None:
             "window_collide_sorted_rescue": steps, "window_collide_worklist": steps}
     if launches != want:
         raise RuntimeError(f"{tag}: launches {launches}, want {want}")
+
+
+def check_telemetry_launches(tag: str, launches: dict, stats_steps: int,
+                             hybrid: bool) -> None:
+    """The telemetry kernels' launches (``telemetry_kernel.LAUNCHES``,
+    counted apart from the step's own, which ``check_runner_launches``
+    holds) over ``stats_steps`` steps of ``with_stats`` calls: a stamp at
+    each stage boundary, five a step and six with the hybrid's
+    screen-space stage, and the hybrid's undecided count once a step."""
+    want = {"stamp": (5 + hybrid) * stats_steps, "count_undecided": hybrid * stats_steps}
+    if launches != want:
+        raise RuntimeError(f"{tag}: telemetry launches {launches}, want {want}")
+
+
+def telemetry_case(torch, card: str, tag: str, und, x, n_over, n_lanes) -> dict:
+    """The telemetry kernels against their plain versions on a real
+    undecided mask (``und``, bool[N]; ``x``, the position row that tells
+    real lanes from sentinels): the count of undecided real lanes, exact;
+    a step's last stamp, whose counter copies (the window overflow
+    ``n_over``, that count, rescue phase 2's ``n_lanes``), zeroed
+    accumulator and advanced row must equal the plain version's; each
+    timed.  Returns the kernel-table numbers of each kernel."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
+        COUNTERS, STAMPS,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        telemetry_kernel as tk,
+    )
+
+    acc = torch.zeros((), dtype=torch.int32, device=x.device)
+    tk.count_undecided(und, x, acc)
+    acc_p = torch.zeros((), dtype=torch.int32)
+    tk.count_undecided_plain(und.cpu(), x.cpu(), acc_p)
+    real = x.abs() < tk.REAL_BOUND
+    # a ring of 4 rows with the step counter at 5: the stamps go to row 1
+    at, end = len(STAMPS), STAMPS.index("end")
+    rings = [torch.full((4, at + len(COUNTERS)), -1, dtype=torch.int64, device=d)
+             for d in (x.device, "cpu")]
+    steps = [torch.full((1,), 5, dtype=torch.int32, device=d) for d in (x.device, "cpu")]
+    accs = [acc.clone(), acc_p.clone()]
+    scalars = [(n_over, n_lanes), (n_over.cpu(), n_lanes.cpu())]
+    for stamp, ring, step, a, (o, n) in zip((tk.stamp, tk.stamp_plain), rings, steps,
+                                             accs, scalars):
+        stamp(ring, step, 0)
+        stamp(ring, step, end, counters_at=at, n_over=o, undecided=a, n_lanes=n)
+    got, want = rings[0].cpu(), rings[1]
+    stamps_ok = bool(torch.equal(got[:, :at] >= 0, want[:, :at] >= 0)
+                     and 0 < got[1, 0] <= got[1, end])
+    print(f"[{card}] telemetry kernels ({tag}, {x.shape[0]} lanes): undecided real "
+          f"lanes {int(acc)} (plain {int(acc_p)}; {int(und.sum())} undecided, "
+          f"{int(real.sum())} real); the last stamp's counters "
+          f"{got[1, at:].tolist()} (plain {want[1, at:].tolist()}), step counter "
+          f"{int(steps[0])} (plain {int(steps[1])}), accumulator {int(accs[0])} "
+          f"(plain {int(accs[1])}), stamps in the right slots and rising: {stamps_ok}")
+    if int(acc) != int(acc_p) or int(acc) != int((und & real).sum()):
+        raise RuntimeError(f"{tag}: the undecided count kernel disagrees with its "
+                           "plain version")
+    if not (torch.equal(got[:, at:], want[:, at:]) and int(steps[0]) == int(steps[1]) == 6
+            and int(accs[0]) == int(accs[1]) == 0 and stamps_ok):
+        raise RuntimeError(f"{tag}: the stamp kernel's counters disagree with its "
+                           "plain version's")
+    count = timed(torch, lambda: tk.count_undecided(und, x, acc),
+                  lambda: tk.count_undecided_plain(und, x, acc))
+    stamp = timed(torch, lambda: tk.stamp(rings[0], steps[0], 0),
+                  lambda: tk.stamp_plain(rings[1], steps[1], 0))
+    for name, t in (("undecided count", count), ("stamp", stamp)):
+        print(f"[{card}] {name} kernel ({tag}): {t['ms']:.4f} ms by events around "
+              f"the call, {ms_text(t['device_ms'])} on the device; plain "
+              f"{t['plain_ms']:.4f} ms")
+    return {"count": {"max_abs_err": 0, **count}, "stamp": {"max_abs_err": 0, **stamp}}
 
 
 def lane_diff(torch, a, b) -> int:
@@ -738,6 +820,9 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        telemetry_kernel as tk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
@@ -779,6 +864,7 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
 
     # ---- the hybrid runner, 700 steps, timed as the spatial path ----
     wk.reset_launches()
+    tk.reset_launches()
     syncs0 = runner.syncs.count
     share, ms = {}, {}
     h = runner(state0, 1)  # step 0
@@ -801,6 +887,12 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     fence(h.pos)
     ms[(600, 700)] = (t_a + time.perf_counter() - t0) * 1000.0 / (N_STEPS - 600)
     launches = dict(wk.LAUNCHES)
+    tel_launches = dict(tk.LAUNCHES)
+    # the ring's undecided counter of step 600 (the first step with stats)
+    # against the stage's undecided real lanes recounted on its input
+    _, und600 = ss.screen_space_collide(h600, tex, gravity, cfg.dt, hybrid=True)
+    und_want = int((und600 & active_mask(h600)).sum())
+    und_got = int(runner.telemetry.records[-2].counters["undecided"][0])
     syncs_per_step = (runner.syncs.count - syncs0) / N_STEPS
     share[N_STEPS] = undecided_share(h)
     coll = check("hybrid path", h, True)
@@ -813,11 +905,16 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
           + f"; host reads {syncs_per_step:.4f}/step (spatial runner "
           f"{spatial_reads:.4f}); overflow steps 600-700 min "
           f"{ovf[0]} median {ovf[len(ovf) // 2]} max {ovf[-1]}; collisions {coll}; "
-          f"launches {launches}")
+          f"launches {launches}; steps 600-700 with stats (the stamped graphs), "
+          f"telemetry launches {tel_launches}; the ring's undecided real lanes at "
+          f"step 600 {und_got}, the stage's recounted {und_want}")
     if not 0.0 < share[N_STEPS] < 1.0:
         raise RuntimeError(f"undecided share {share[N_STEPS]} at step {N_STEPS} "
                            "is not strictly between 0 and 1")
     check_runner_launches("hybrid path", launches, N_STEPS)
+    check_telemetry_launches("hybrid path", tel_launches, N_STEPS - 600, True)
+    if und_got != und_want:
+        raise RuntimeError("the hybrid's undecided counter disagrees with the stage")
     if not max(ovf) > 0:
         raise RuntimeError("no lane overflowed in steps 600-700: the rescue never ran")
 
@@ -844,7 +941,7 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
           f"the screen-space stage collides "
           f"{int((st.collisions - h650.collisions).sum())} particles in this step")
     numbers = {"b2": b2_case(torch, card, f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
-               "launches": launches,
+               "launches": launches, "tel_launches": tel_launches,
                "worklist": worklist_case(torch, card, sp, f"hybrid, step {SNAP_STEP}",
                                          wl_args)}
     for tag, (args, w) in cases.items():
@@ -2161,12 +2258,14 @@ class _EpisodeTap:
     runner from the spawn state, then runs the episode from it.  The
     host reads and kernel launches so far are kept at the first call's
     end at or past ``mark_step`` (``mark``) and at the last call's
-    (``end``): (step, reads, launches)."""
+    (``end``): (step, reads, launches).  ``stats_steps`` counts every step
+    it ran, all with stats."""
 
     def __init__(self, runner, snap_step: int, mark_step: int):
         self.runner, self.snap_step, self.mark_step = runner, snap_step, mark_step
         self.sp = runner.sp
         self.spawn = None
+        self.stats_steps = 0
 
     def counters(self):
         from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -2186,6 +2285,7 @@ class _EpisodeTap:
             state, ovf = self.runner(state, n, with_stats=True)
             self.overflow += ovf
             self.done += n
+            self.stats_steps += n
             if self.done == self.snap_step:
                 self.snap = state
         if self.mark is None and self.done >= self.mark_step:
@@ -2230,6 +2330,9 @@ def drive_protocol(torch, card: str) -> dict:
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        telemetry_kernel as tk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
     )
 
@@ -2254,6 +2357,7 @@ def drive_protocol(torch, card: str) -> dict:
     make_runner = H.make_sorted_episode_runner
     H.make_sorted_episode_runner = tapped_runner
     wk.reset_launches()
+    tk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -2264,6 +2368,7 @@ def drive_protocol(torch, card: str) -> dict:
         H.make_sorted_episode_runner = make_runner
     wall_a = time.perf_counter() - t0
     launches_a = dict(wk.LAUNCHES)
+    tel_launches_a = dict(tk.LAUNCHES)
     cam0 = scene.cameras[0].name
     if [(r["method"], r["camera"]) for r in rows] != [(m, cam0) for m in methods]:
         raise RuntimeError(f"protocol k={PROTOCOL_K}: rows {rows}")
@@ -2318,6 +2423,8 @@ def drive_protocol(torch, card: str) -> dict:
         and (s.pos[:, pad] == 1e38).all() and (sv[0] == 0).all() and (sv[2] == 0).all()
         and torch.isfinite(sv[1]).all() and (sv[1] == sv[1, 0]).all()
         and (s.collisions[pad] == 0).all())
+    check_telemetry_launches(f"protocol k={PROTOCOL_K}, the spatial episode",
+                             tel_launches_a, tap.stats_steps, False)
     (m_step, m_reads, m_launch), (e_step, e_reads, e_launch) = tap.mark, tap.end
     late = e_step - m_step
     print(f"[{card}] protocol k={PROTOCOL_K}, the spatial episode, steps {m_step}-"
@@ -2328,6 +2435,7 @@ def drive_protocol(torch, card: str) -> dict:
           f"{sorted(ovf)[len(ovf) // 2]}, above {S._COMPACT_CAP} on "
           f"{sum(o > S._COMPACT_CAP for o in ovf)} steps; host reads "
           f"{(tap.runner.syncs.count - tap.syncs0) / PROTOCOL_STEPS:.2f}/step; "
+          f"{tap.stats_steps} steps with stats, telemetry launches {tel_launches_a}; "
           f"collisions {coll} (row {rows[methods.index('spatial')]['collisions']}); "
           f"NaN/inf on {nan_lanes} active lanes; max speed {vmax:.2f} u/s (bound "
           f"g*dt*steps {abs(cfg.gravity[1]) * cfg.dt * PROTOCOL_STEPS:.1f}, lookup cover "
@@ -2368,6 +2476,10 @@ def drive_protocol(torch, card: str) -> dict:
     at = f"protocol k={PROTOCOL_K}, step {PROTOCOL_SNAP_STEP}"
     numbers = {"b2": b2_case(torch, card, at, b2_args), "b1": {},
                "worklist": worklist_case(torch, card, sp, at, wl_args)}
+    # the stamp's counters in phase 10's telemetry case: this step's
+    # window overflow and rescue phase 2's listed lanes
+    tel_scalars = (torch.tensor(ovf[PROTOCOL_SNAP_STEP], dtype=torch.int32,
+                                device=snap.pos.device), wl_args[7])
     for tag, (args, w) in cases.items():
         numbers["b1"][tag] = window_case(
             torch, card, sp, f"protocol k={PROTOCOL_K} {tag}, step {PROTOCOL_SNAP_STEP}",
@@ -2443,8 +2555,13 @@ def drive_protocol(torch, card: str) -> dict:
                                "neither active nor sentinels")
         sentinels_in_plan(f"hybrid plan on {cam.name!r}, k={PROTOCOL_K} state at step "
                           f"{PROTOCOL_STEPS}", st, und)
+        if cam is scene.cameras[0]:  # the telemetry kernels on its mask
+            numbers["telemetry"] = telemetry_case(
+                torch, card, f"{cam.name!r}, k={PROTOCOL_K} state at step "
+                f"{PROTOCOL_STEPS}", und, s.pos[0], *tel_scalars)
     print(f"[{card}] phase 10 (protocol ladder): {time.perf_counter() - t_phase:.1f} s")
-    return {"launches_k7": launches_a, "launches_k0": launches_b, **numbers}
+    return {"launches_k7": launches_a, "launches_k0": launches_b,
+            "tel_launches_k7": tel_launches_a, **numbers}
 
 
 # phase 11: the headline benchmark (bench/headline.py), at its defaults
@@ -2750,6 +2867,9 @@ def main() -> int:
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        telemetry_kernel as tk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
@@ -2801,6 +2921,7 @@ def main() -> int:
           f"host setup {time.perf_counter() - t0:.1f} s")
 
     wk.reset_launches()
+    tk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ovf_all, reads = [], []
     s = state0
@@ -2824,6 +2945,7 @@ def main() -> int:
     t_a = walls[3]
     impact_ms = (walls[3] + walls[4]) * 1000.0 / (N_STEPS - 600)
     launches = dict(wk.LAUNCHES)
+    tel_launches = dict(tk.LAUNCHES)
     syncs_per_step = sum(reads) / N_STEPS
     ovf_a, ovf_b = ovf_all[600:SNAP_STEP], ovf_all[SNAP_STEP:]
     print(f"[{card}] main path: runner captured {runner.graphed}; host reads per "
@@ -2845,7 +2967,8 @@ def main() -> int:
           f"{mid_ms:.3f} ms/step, steps 600-700 {impact_ms:.3f} ms/step; "
           f"host syncs {syncs_per_step:.2f}/step; overflow steps 600-700 "
           f"min {min(ovf)} median {sorted(ovf)[len(ovf) // 2]} max {max(ovf)}; "
-          f"collisions {total_coll}; launches {launches}")
+          f"collisions {total_coll}; launches {launches}; every call with stats "
+          f"(the stamped graphs), telemetry launches {tel_launches}")
     if nan_lanes:
         raise RuntimeError(f"{nan_lanes} active lanes hold NaN/inf")
     if not sentinels_ok:
@@ -2853,6 +2976,7 @@ def main() -> int:
     if total_coll <= 0:
         raise RuntimeError("no collisions in 700 steps")
     check_runner_launches("main path", launches, N_STEPS)
+    check_telemetry_launches("main path", tel_launches, N_STEPS, False)
     if not max(ovf) > 0:
         raise RuntimeError("no lane overflowed in steps 600-700: the rescue never ran")
 
@@ -2965,6 +3089,18 @@ def main() -> int:
                 "collide_kernel": {"blocks_per_sm": wl_blocks, "registers": wl_regs,
                                    "local_bytes": wl_local, "sass_per_candidate": sass}}
 
+    def tel_entry(name, key, numbers):
+        # the runner's telemetry kernels (no TPU kernel behind them: the
+        # JAX package times its steps from outside), launched on the calls
+        # with stats, counted apart from the step's own launches; held
+        # against their plain versions on "Main Camera"'s undecided mask
+        # of the k = 7 state at step 2001
+        return {"name": name, "route": "cuda", "source": PORT_CSRC + "telemetry_kernel.cu",
+                "replaces": None, "launches": tel_launches[key],
+                "launches_hybrid": hyb["tel_launches"][key],
+                "launches_protocol_k7": prot["tel_launches_k7"][key],
+                **numbers, "library_ms": None, "path": "telemetry"}
+
     def headline_keys(key):
         # phase 11: the headline episode's launches (the counter, which
         # counts graph replays; the profiler's count of each kernel the
@@ -3043,6 +3179,8 @@ def main() -> int:
          "launches_k0_cameras": prot["launches_k0"]["window_collide_worklist"]},
         {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
         *b3[1:],
+        tel_entry("psys_stamp_kernel", "stamp", prot["telemetry"]["stamp"]),
+        tel_entry("undecided_count_kernel", "count_undecided", prot["telemetry"]["count"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -105,7 +105,17 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
     bake_camera,
     screen_space_collide,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
+    StepRing,
+    Telemetry,
+    step_span,
+)
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as tk
 from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_parallel as dp
+from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import (
+    Stopwatch,
+    fence,
+)
 
 
 class HostSyncs:
@@ -534,13 +544,14 @@ _RESCUE_LAUNCHES = "window_collide_sorted_rescue"
 
 
 def _chunked_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
-                    syncs: HostSyncs, kernel_chunk: int = 8192):
+                    syncs: HostSyncs, kernel_chunk: int = 8192, tap=None):
     """Exact redo of the window-overflow lanes, in up to three phases,
     looped and skipped on the host, as the JAX package's ``_chunked_rescue``
     loops them on the device.  Test and smoke helper, on no entry point's
     path: the reference that ``_device_rescue`` (the steps' rescue) is
     held to bit for bit.  It takes ``_device_rescue``'s arguments, so a
-    test can put it in that one's place.
+    test can put it in that one's place (``tap`` too: it lists no lanes
+    on the device, so it records no lane count).
 
     Phase 1 (window kernel, ``kernel_chunk``-lane chunks): compact the
     overflow lanes in CURRENT Morton-key order (``key_s``; pair rows are
@@ -678,7 +689,7 @@ def _phase3_possible(sp) -> bool:
 
 
 def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
-                   syncs: HostSyncs, rescue_compact: bool = False):
+                   syncs: HostSyncs, rescue_compact: bool = False, tap=None):
     """The sorted steps' rescue: the exact redo of the window-overflow
     lanes with its work sized on the device -- no host read, no Python
     branch on a device value -- so a step can be captured and replayed.
@@ -699,7 +710,8 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
 
     Phase 2 (one launch of ``window_collide_worklist``): the lanes still
     undecided whose cell fits a row's window alone (start % 128 + count
-    <= ``rescue_window``), compacted on the device.
+    <= ``rescue_window``), compacted on the device; their count goes to
+    ``tap.lanes`` (a runner's ``with_stats`` step).
 
     Phase 3 (``_packed_rescue``, host reads): the rest, on scenes where a
     cell holds more than ``rescue_window`` - 127 candidates
@@ -713,6 +725,8 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
     # ---- phase 2: each remaining lane alone, one launch ----
     start, count, fit = _phase2_plan(sorted_state, sp)
     lanes, n_lanes = compact_lanes(still & fit)
+    if tap is not None:
+        tap.lanes = n_lanes
     window_collide_worklist(*sorted_state, start, count, lanes, n_lanes, sp.tables,
                             pos_k, vel_k, hit_k, **_rescue_kw(sp))
     if _phase3_possible(sp):
@@ -936,13 +950,16 @@ def _build_sorted(triangles, cfg, *, window, fallback_capacity, cells_lookup,
 
 
 def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
-                    syncs: HostSyncs, *, active_s=None, rescue_compact: bool = False):
+                    syncs: HostSyncs, *, active_s=None, rescue_compact: bool = False,
+                    tap: Optional[StepRing] = None):
     """Plan + window kernel + rescue on particles in (approximately)
     sorted order; ``key_s`` is their current Morton key.  ``active_s``
     (hybrid: the undecided mask in the same order) zeroes the candidate
     counts of the other lanes, so they neither collide nor overflow into
-    the rescue (``_device_rescue``); every lane is integrated.  Returns
-    (pos', vel', hit i32[N], n_over i32[]) in the same order."""
+    the rescue (``_device_rescue``); every lane is integrated.  ``tap``
+    (a runner's ``with_stats`` step) stamps "main" between the main
+    launch and the rescue.  Returns (pos', vel', hit i32[N], n_over i32[])
+    in the same order."""
     cfg = sp.cfg
     n = pos_s.shape[-1]
     if n % BLOCK:
@@ -964,10 +981,12 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
         w=sp.window, k_static=sp.meta.max_tris_per_cell,
         gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff,
     )
+    if tap is not None:
+        tap.stamp("main")
     sorted_state = (pos_s, vel_s, radius_s, restit_s)
     return _device_rescue(kernel_out, sorted_state, overflow, sp, key_s=key_s,
                           ovf_count=ovf_count, syncs=syncs,
-                          rescue_compact=rescue_compact)
+                          rescue_compact=rescue_compact, tap=tap)
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -1112,14 +1131,15 @@ def uncaptured():
         _CAPTURE = was
 
 
-def _capture(body, counters: dict, pool=None, error_mode: str = "global"):
+def _capture(body, *counters: dict, pool=None, error_mode: str = "global"):
     """Capture ``body()`` in a new CUDA graph (memory from ``pool`` when
-    given).  Returns (graph, what ``body`` returned, {counter: launches}):
-    a capture launches nothing, so the launches that the wrappers counted
-    go back out of ``counters``, and ``_replay`` adds them per replay.
-    Python's cycle collector is off during the capture: a graph that it
-    freed then (one held by dead objects) would invalidate the capture."""
-    before = dict(counters)
+    given).  Returns (graph, what ``body`` returned, [{counter: launches}
+    for each of ``counters``]): a capture launches nothing, so the
+    launches that the wrappers counted go back out of ``counters``, and
+    ``_replay`` adds them per replay.  Python's cycle collector is off
+    during the capture: a graph that it freed then (one held by dead
+    objects) would invalidate the capture."""
+    before = [dict(c) for c in counters]
     g = torch.cuda.CUDAGraph()
     gc.disable()
     try:
@@ -1127,15 +1147,20 @@ def _capture(body, counters: dict, pool=None, error_mode: str = "global"):
             out = body()
     finally:
         gc.enable()
-    made = {k: counters[k] - before[k] for k in counters}
-    for k, v in made.items():
-        counters[k] -= v
+    made = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    for c, m in zip(counters, made):
+        for k, v in m.items():
+            c[k] -= v
     return g, out, made
 
 
 def _replay(graph, launches: dict, counters: dict) -> None:
     """Replay a captured step and count its kernel launches."""
     graph.replay()
+    _tally(launches, counters)
+
+
+def _tally(launches: dict, counters: dict) -> None:
     for k, v in launches.items():
         counters[k] += v
 
@@ -1180,10 +1205,27 @@ class SortedEpisodeRunner:
     ranks sharing one card, or CPU ranks) it steps eagerly.  Steps are
     also eager on scenes whose densest cell outgrows the rescue window
     (``phase3``: the packed rescue phase reads its counts on the host).
-    A failed capture raises."""
+    A failed capture raises.
+
+    ``telemetry`` (``core/telemetry.py::Telemetry``) holds the set-up
+    laps and, for every ``with_stats`` call, its steps' stage times and
+    counters.  Such a call steps with a ``StepRing``: stamps of the
+    device clock at the step's start, after the screen-space stage
+    (hybrid), the order (key, sort, permutes), the main launch with its
+    plan, the rescue, and the step's end, which also copies the window
+    overflow, the undecided real lanes (hybrid) and rescue phase 2's
+    listed lanes into the step's ring row; the ring is read once after
+    the call's last step.  Those steps are captured as a pair of graphs
+    of their own (captured on the first ``with_stats`` call), so a call
+    without stats replays graphs without a stamp; ``telemetry_launches``
+    holds the stamped pair's telemetry kernel launches, which every
+    replay of it adds to ``telemetry_kernel.LAUNCHES``.  Each step of a
+    ``with_stats`` call runs inside the profiler span "psys.runner.step"
+    (``core/telemetry.py::step_span``)."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
-                 rescue_compact: bool, tex=None, mesh=None):
+                 rescue_compact: bool, tex=None, mesh=None,
+                 telemetry: Optional[Telemetry] = None):
         if resort_every != "auto" and (
                 not isinstance(resort_every, int) or resort_every < 1):
             raise ValueError(f"resort_every must be a positive int or "
@@ -1202,17 +1244,23 @@ class SortedEpisodeRunner:
         #: on the device)
         self.graphed = (sp.gravity.device.type == "cuda" and not self.phase3
                         and (mesh is None or not dp.through_host(mesh)))
-        #: kernel launches per replay, by wrapper, once captured
+        #: kernel launches per replay, by wrapper, once captured (the
+        #: telemetry's stamps are not counted)
         self.launches: dict = {}
+        #: telemetry kernel launches per replay of the stamped pair
+        self.telemetry_launches: dict = {}
+        self.telemetry = telemetry or Telemetry(Stopwatch())
         self._carry: dict = {}  # N -> _Carry
-        self._graphs: dict = {}  # N -> {re-sort: CUDAGraph}
-        self._warm: set = set()  # N whose first step ran (eagerly)
+        self._rings: dict = {}  # N -> StepRing
+        self._graphs: dict = {}  # (N, with stats) -> {re-sort: CUDAGraph}
+        self._pools: dict = {}  # N -> the memory pool its graphs share
+        self._warm: set = set()  # (N, with stats) whose first step ran eagerly
 
-    def _collide(self, rows8, key_s, active_s):
+    def _collide(self, rows8, key_s, active_s, tap=None):
         return _collide_sorted(
             self.sp, rows8[0:3], rows8[3:6], rows8[6], rows8[7], key_s,
             self.syncs, active_s=active_s,
-            rescue_compact=self.rescue_compact,
+            rescue_compact=self.rescue_compact, tap=tap,
         )
 
     def _ss_stage(self, rows8, aux):
@@ -1239,7 +1287,7 @@ class SortedEpisodeRunner:
             self._carry[n] = b
         return b
 
-    def _step(self, b: _Carry, do_sort: bool):
+    def _step(self, b: _Carry, do_sort: bool, ring: Optional[StepRing] = None):
         """One step in place on the carried buffers; with ``do_sort``
         re-sort first, else keep the current (drifted) order --
         sortedness is a locality hint, the rescue redoes whatever no
@@ -1247,13 +1295,18 @@ class SortedEpisodeRunner:
         runs first and its undecided mask follows the rows through the
         sort.  "auto" then sets ``b.resort`` on the device from this
         step's overflow, summed over the mesh if there is one (the step's
-        only collective; every rank reaches it)."""
+        only collective; every rank reaches it).  With ``ring`` the step
+        stamps its stages and writes its counters (class docstring)."""
+        if ring is not None:
+            ring.stamp("start")
         rows8, aux = b.rows8, b.aux
         if self.tex is not None:
             r8, ax, und = self._ss_stage(rows8, aux)
             rows8.copy_(r8)
             aux.copy_(ax)
             b.act.copy_(und)
+            if ring is not None:
+                ring.stamp("screenspace")
         dt = self.sp.cfg.dt
         b.key.copy_(morton_key(lookup_pos(rows8[0:3], rows8[3:6], dt), self.sp.meta))
         if do_sort:
@@ -1263,7 +1316,11 @@ class SortedEpisodeRunner:
             aux.copy_(aux[:, perm])
             if b.act is not None:
                 b.act.copy_(b.act[perm])
-        pos_k, vel_k, hit_k, n_over = self._collide(rows8, b.key, b.act)
+        if ring is not None:
+            ring.stamp("order")
+        pos_k, vel_k, hit_k, n_over = self._collide(rows8, b.key, b.act, ring)
+        if ring is not None:
+            ring.stamp("rescue")
         rows8[0:3].copy_(pos_k)
         rows8[3:6].copy_(vel_k)
         aux[0].add_(hit_k)
@@ -1276,28 +1333,68 @@ class SortedEpisodeRunner:
                 b.base.copy_(n_over)
             b.resort.copy_(n_over > b.base + self.resort_threshold)
         b.n_over.copy_(n_over)
+        if ring is not None:
+            if b.act is not None:
+                ring.count_undecided(b.act, rows8[0])
+            ring.end(b.n_over)
 
-    def _capture(self, n: int, b: _Carry) -> dict:
-        """Capture the step with and without the re-sort (one memory
-        pool).  Their kernel launches, which must be the same, go to
-        ``self.launches`` and back out of ``LAUNCHES``: a capture
-        launches nothing."""
-        graphs, made, pool = {}, [], None
+    def _capture(self, n: int, b: _Carry, ring: Optional[StepRing]) -> dict:
+        """Capture the step with and without the re-sort (with ``ring``,
+        the stamped step), in the memory pool of N's graphs.  Their kernel
+        launches, which must be the same as every other pair's, go to
+        ``self.launches`` and back out of ``LAUNCHES``, the stamped pair's
+        telemetry launches to ``self.telemetry_launches`` and back out of
+        ``telemetry_kernel.LAUNCHES``: a capture launches nothing."""
+        graphs, made, stamped = {}, [self.launches] if self.launches else [], []
         # a mesh's NCCL watchdog thread queries events while this thread
         # captures: only this thread's calls may break the capture
         mode = "global" if self.mesh is None else "thread_local"
         for do_sort in (True, False):
-            g, _, launches = _capture(lambda: self._step(b, do_sort), LAUNCHES,
-                                      pool, mode)
-            pool = g.pool()
+            g, _, (launches, telemetry) = _capture(
+                lambda: self._step(b, do_sort, ring), LAUNCHES, tk.LAUNCHES,
+                pool=self._pools.get(n), error_mode=mode)
+            self._pools[n] = g.pool()
             graphs[do_sort] = g
             made.append(launches)
-        if made[0] != made[1]:
+            stamped.append(telemetry)
+        if any(m != made[0] for m in made) or stamped[0] != stamped[1]:
             raise RuntimeError(f"the captured steps launch different kernels: "
-                               f"{made}")
+                               f"{made}, telemetry {stamped}")
         self.launches = made[0]
-        self._graphs[n] = graphs
+        if ring is not None:
+            self.telemetry_launches = stamped[0]
+        self._graphs[n, ring is not None] = graphs
         return graphs
+
+    def _advance(self, n: int, b: _Carry, i: int, do_sort: bool, graphed: bool,
+                 ring: Optional[StepRing]) -> bool:
+        """Step ``i`` of a call: choose the branch, then replay its graph,
+        or step eagerly.  The first step for N, with or without stats
+        (eager: its kernels load before any capture), and the captures
+        are timed as the set-up lap "capture".  Returns the branch."""
+        if i and self.resort_every != "auto":
+            do_sort = i % self.resort_every == 0
+        elif i:
+            do_sort = bool(self.syncs.read(b.resort))
+        key = (n, ring is not None)
+        graphs = self._graphs.get(key) if graphed else None
+        if graphs is None and key in self._warm and not graphed:
+            self._step(b, do_sort, ring)
+        elif graphs is None:
+            setup = self.telemetry.setup
+            setup.restart()
+            if key in self._warm:
+                graphs = self._capture(n, b, ring)
+            else:
+                self._step(b, do_sort, ring)
+                self._warm.add(key)
+            fence(b.rows8)
+            setup.lap("capture")
+        if graphs is not None:
+            _replay(graphs[do_sort], self.launches, LAUNCHES)
+            if ring is not None:
+                _tally(self.telemetry_launches, tk.LAUNCHES)
+        return do_sort
 
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
@@ -1320,31 +1417,32 @@ class SortedEpisodeRunner:
         b.aux[0].copy_(state.collisions)
         b.aux[1].copy_(torch.arange(n, dtype=torch.int32, device=dev))
         graphed = self.graphed and _CAPTURE
-        auto = self.resort_every == "auto"
-        overflows = []
+        call = self.telemetry.calls
+        self.telemetry.calls += 1
+        ring, rows = None, []
+        if with_stats:
+            ring = self._rings.get(n)
+            if ring is None:
+                ring = self._rings[n] = StepRing(dev, hybrid=self.tex is not None)
         # "auto": step 0 establishes the order; later steps re-sort when
         # the flag the previous step set on the device says so (with a
         # mesh, from the overflow summed over it: every rank reads the
         # same flag and takes the same branch)
         do_sort = True
         for i in range(num_steps):
-            if i and not auto:
-                do_sort = i % self.resort_every == 0
-            elif i:
-                do_sort = bool(self.syncs.read(b.resort))
-            graphs = self._graphs.get(n) if graphed else None
-            if graphs is None and graphed and n in self._warm:
-                graphs = self._capture(n, b)
-            if graphs is None:
-                self._step(b, do_sort)
-                self._warm.add(n)
-            else:
-                _replay(graphs[do_sort], self.launches, LAUNCHES)
             if with_stats:
-                overflows.append(b.n_over.clone())
-        if overflows:
-            overflows = torch.stack(overflows).tolist()
-        if with_stats and not auto and self.mesh is not None:
+                if i and i % ring.cap == 0:
+                    rows.append(ring.drain(ring.cap))
+                with step_span():
+                    do_sort = self._advance(n, b, i, do_sort, graphed, ring)
+            else:
+                do_sort = self._advance(n, b, i, do_sort, graphed, None)
+        overflows = []
+        if with_stats and num_steps:
+            rows.append(ring.drain(num_steps - len(rows) * ring.cap))
+            rec = self.telemetry.keep(call, np.concatenate(rows))
+            overflows = rec.counters["n_over"].tolist()
+        if with_stats and self.resort_every != "auto" and self.mesh is not None:
             overflows = dp.sum_int_list(overflows, self.mesh)
         self.steps += num_steps
         # restore the original order once
@@ -1401,16 +1499,22 @@ def make_sorted_episode_runner(
     ``with_stats`` are summed once, after the call's last step.
     """
     check_speed_cover(cfg)  # fail loudly if the episode outruns the grid
+    setup = Stopwatch()
     sp = _build_sorted(
         triangles, cfg, window=window, fallback_capacity=fallback_capacity,
         cells_lookup=cells_lookup, dense_demote=dense_demote,
         device=_mesh_device(mesh, device),
     )
+    fence(sp.gravity)
+    setup.lap("tables")
     tex = None
     if camera is not None:
         tex = bake_camera(triangles, camera, normals, device=sp.gravity.device)
+        fence(sp.gravity)
+        setup.lap("bake")
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
-                               rescue_compact, tex=tex, mesh=mesh)
+                               rescue_compact, tex=tex, mesh=mesh,
+                               telemetry=Telemetry(setup))
 
 
 def make_method_step(scene, method, camera_index: int = 0,
@@ -1619,7 +1723,7 @@ def make_p2p_step(
             result = eager(state)
             static = ParticleState(*(x.clone(memory_format=torch.contiguous_format)
                                      for x in state))
-            g, out, made = _capture(lambda: eager(static), P2P_LAUNCHES)
+            g, out, (made,) = _capture(lambda: eager(static), P2P_LAUNCHES)
             graphs[n] = (g, static, out)
             launches.update(made)
             return result
@@ -1748,7 +1852,7 @@ class P2PEpisodeRunner:
         for _ in range(num_steps):
             g = self._graphs.get(n_k) if graphed else None
             if g is None and graphed and n_k in self._warm:
-                g, _, self.launches = _capture(lambda: self._step(b), P2P_LAUNCHES)
+                g, _, (self.launches,) = _capture(lambda: self._step(b), P2P_LAUNCHES)
                 self._graphs[n_k] = g
             if g is None:
                 self._step(b)

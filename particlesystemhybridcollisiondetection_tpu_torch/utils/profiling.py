@@ -2,11 +2,10 @@
 ``utils/profiling.py``).
 
   * ``fence``: wait for the device (``torch.cuda.synchronize``).
-  * ``rtt_ms``: host-device round trip of a tiny op and a scalar read.
-  * ``Stopwatch``: host timer with named laps (build phases).
+  * ``Stopwatch``: host timer with named laps (build phases; a runner's
+    set-up laps).
   * ``DeviceTimer``: first-call and steady-state ms/call of a callable,
     by CUDA events on the card and the host clock on the CPU.
-  * ``phase_times``: time named pipeline phases one after another.
   * ``trace``: ``torch.profiler`` around a block, written as a Chrome trace.
   * ``StepTimeseries``: per-step ms with the reference's skip-first rule.
 """
@@ -17,7 +16,7 @@ import contextlib
 import os
 import tempfile
 import time
-from typing import Callable, Sequence
+from typing import Callable
 
 import numpy as np
 import torch
@@ -41,18 +40,6 @@ def fence(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
-def rtt_ms(reps: int = 10, device="cuda") -> float:
-    """Measured round trip of a tiny op plus a scalar read back."""
-    x = torch.zeros((), dtype=torch.float32, device=device)
-    for _ in range(3):
-        x = x + 1.0
-    float(x)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        float(x + 1.0)
-    return (time.perf_counter() - t0) / reps * 1000.0
-
-
 class Stopwatch:
     """Named-lap host timer (the BVH-build Stopwatch analog)."""
 
@@ -66,6 +53,10 @@ class Stopwatch:
         self.laps[name] = self.laps.get(name, 0.0) + dt
         self._t0 = now
         return dt
+
+    def restart(self) -> None:
+        """Start the next lap now (the time since the last lap is dropped)."""
+        self._t0 = time.perf_counter()
 
     def report(self) -> str:
         total = sum(self.laps.values())
@@ -107,28 +98,6 @@ class DeviceTimer:
             fence(out)
             self.mean_ms = (time.perf_counter() - t0) / reps * 1000.0
         self.last_output = out
-
-
-def phase_times(
-    phases: Sequence[tuple[str, Callable]],
-    state,
-    reps: int = 10,
-) -> dict[str, float]:
-    """Time named pipeline phases one at a time (ms each).  Each phase is
-    ``state -> state``; phases run in order, so each sees a
-    representative input.  For attribution: the sum also counts the
-    fences between phases."""
-    out: dict[str, float] = {}
-    for name, fn in phases:
-        s = fn(state)
-        fence(s)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            s = fn(state)
-        fence(s)
-        out[name] = (time.perf_counter() - t0) / reps * 1000.0
-        state = s
-    return out
 
 
 @contextlib.contextmanager

@@ -1,7 +1,7 @@
 """PyTorch port, the profiling utilities and the resilient runner on the
 CPU: ``Stopwatch``, ``StepTimeseries`` (summaries equal to the JAX
-package's on the same series), ``DeviceTimer``, ``phase_times``, ``trace``
-and ``fence``; ``ResilientRunner`` with injected device failures (the
+package's on the same series), ``DeviceTimer``, ``trace`` and
+``fence``; ``ResilientRunner`` with injected device failures (the
 recovered run equal to an uninterrupted one bit for bit), giving up, and
 propagating real bugs."""
 
@@ -56,17 +56,6 @@ def test_device_timer_and_phases():
     assert t.compile_s > 0 and t.mean_ms > 0
     assert t.last_output.pos.shape == state.pos.shape
 
-    phases = tprof.phase_times(
-        [
-            ("collide+integrate", step),
-            ("integrate-only", lambda s: s._replace(pos=s.pos + s.vel * 0.001)),
-        ],
-        state,
-        reps=2,
-    )
-    assert set(phases) == {"collide+integrate", "integrate-only"}
-    assert phases["collide+integrate"] > phases["integrate-only"]
-
 
 def test_trace_writes_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")) as d:
@@ -78,12 +67,11 @@ def test_trace_writes_chrome_trace(tmp_path):
 
 def test_fence_and_rtt_on_cpu():
     """fence takes a tensor or a (named) tuple of them; on the CPU it has
-    nothing to wait for.  rtt_ms measures a tiny op and a read back."""
+    nothing to wait for."""
     s = spawn_grid(PRESETS["sample"], layers_y=1, device="cpu")
     tprof.fence(s)
     tprof.fence(s.pos)
     tprof.fence({"a": [s.pos, (s.vel,)]})
-    assert tprof.rtt_ms(reps=3, device="cpu") > 0
 
 
 def _fast_step():
