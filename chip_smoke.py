@@ -29,10 +29,11 @@ Phases (each raises on failure; nothing is caught and passed over):
      overflow sequence bit for bit against the captured run;
   3. on the states at step 650 and at step 700 (denser), hold each of
      its kernels against its plain PyTorch version at the main path's
-     shapes (cells lookup; window kernel at the main window and on the
-     rescue's phase-1 launch over the full Morton-compacted order; the
-     worklist entry point on the lanes phase 2 takes, every lane, and at
-     step 650 with no lane listed), and
+     shapes (cells lookup; window kernel at the main window and at the
+     rescue window over the host-looped rescue's whole phase-1 order, the
+     full Morton-compacted order, which no step launches any more; the
+     worklist entry point on the lanes the rescue lists, every overflow
+     lane, every lane checked, and at step 650 with no lane listed), and
      the window kernel on a chunk of 8,192 lanes of the phase-1 order,
      which splits each row over several blocks (``row_split``, as every
      launch with fewer rows than two per SM: the k = 0 rung, the
@@ -54,7 +55,7 @@ Phases (each raises on failure; nothing is caught and passed over):
      the ring's undecided counter of step 600 equal to the stage's
      undecided real lanes recounted on its input); run the
      screen-space method 700 steps at the same width; print the three
-     methods' collisions; hold B1 (masked main plan, rescue phase 1), the
+     methods' collisions; hold B1 (masked main plan, the phase-1 order), the
      worklist entry point and B2 against their plain versions on the
      hybrid state at step 650 and time them; hold 20 runner steps from
      step 600 against 20 steps of make_hybrid_step_sorted;
@@ -93,7 +94,7 @@ Phases (each raises on failure; nothing is caught and passed over):
      equal to the printed results and to the accuracy blocks, B1 and B2
      launched); ``bench --per-step`` of the spatial method, 50 steps (the
      non-persistent ``make_method_step`` path, each step launching each
-     kernel once, B1 twice), then that step over 20 steps from spawn and
+     kernel as a runner step does), then that step over 20 steps from spawn and
      from step 650 with its rescue and with the host-looped one in its
      place (ms/step and host reads, states equal bit for bit; a
      reading); ``simulate`` of the
@@ -151,7 +152,11 @@ Phases (each raises on failure; nothing is caught and passed over):
      plain versions, and one step of the runner (replayed) against one of
      the per-step step with the rescue looped on the host
      (``_chunked_rescue``, a test and smoke helper) in place of its own,
-     every lane; (b) k = 0, the three
+     every lane; then ``rescue_route``: the spatial episode in the
+     benchmark's 87-step calls by the runner, every overflow lane listed
+     on every step, and the rescue at a free-fall step, step 1500 and the
+     step with the most overflow lanes, eager and replayed, equal there
+     to the host-looped rescue and timed (CUDA events); (b) k = 0, the three
      methods on all four cameras, 50 steps: a row for each, and each
      camera's undecided mask on the k = 7 state (active lanes, and the
      falling sentinels, which must stay out of the hybrid's plan).  The
@@ -180,8 +185,8 @@ Phases (each raises on failure; nothing is caught and passed over):
      reading, ``device_ms`` the profiler's, null where its device trace
      came back empty; the hybrid path's entries carry "path": "hybrid";
      every ``launches`` is a counter's reading: B1's main entry counts its
-     main launches, its phase-1 entry the launches counted apart as the
-     rescue's (``window_collide_sorted_rescue``), and nests the
+     main launches, its phase-1 entry the launches at the rescue window
+     (``window_collide_sorted_rescue``, 0 on every path), and nests the
      8,192-lane chunk's numbers;
      the explicit-plan entry point of the p2p kernel, which no main path
      launches, and its worklist entry point are listed under that
@@ -199,6 +204,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 N_STEPS = 700
 SNAP_STEP = 650
@@ -207,6 +213,11 @@ SNAP_STEP = 650
 RESCUE_CHUNK = 8192
 # phase 2's runner calls: step 0, steps 1-151, 151-600, 600-650, 650-700
 PHASE2_CALLS = (1, 150, 449, 50, 50)
+# a sorted step's launches by wrapper (cells lookup "kernel"): B2, B1's
+# main launch, the worklist entry point (every overflow lane); B1 at the
+# rescue window never
+STEP_LAUNCHES = {"cells_window_lookup": 1, "window_collide_sorted": 1,
+                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1}
 REPS = 20
 PROFILER_TRIES = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -435,14 +446,17 @@ def by_kernel(rows_counts) -> str:
 
 
 def check_runner_launches(tag: str, launches: dict, steps: int) -> None:
-    """A sorted step's launches over ``steps`` steps: each step launches
-    B2 once (cells lookup "kernel"), B1's main launch once, B1 once in the
-    rescue (phase 1, counted apart) and the worklist entry point once
-    (phase 2)."""
-    want = {"cells_window_lookup": steps, "window_collide_sorted": steps,
-            "window_collide_sorted_rescue": steps, "window_collide_worklist": steps}
+    """A sorted step's launches over ``steps`` steps (``STEP_LAUNCHES``)."""
+    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
     if launches != want:
         raise RuntimeError(f"{tag}: launches {launches}, want {want}")
+
+
+def launch_fault(launches: dict) -> bool:
+    """Whether a sorted path's launch counts (over some steps) miss a
+    kernel of its step, or hold a launch that its step never makes
+    (``STEP_LAUNCHES``)."""
+    return any((n > 0) != (STEP_LAUNCHES[k] > 0) for k, n in launches.items())
 
 
 def check_telemetry_launches(tag: str, launches: dict, stats_steps: int,
@@ -533,14 +547,15 @@ def span_columns(torch, col0, bound, n_cols: int) -> int:
 
 def sorted_plan(torch, sp, state, undecided=None):
     """Sort and plan a state as the runner's step does: the cells
-    kernel's arguments, the window kernel's at the main window and on the
-    rescue's phase-1 launch (the full Morton-compacted order) and on its
-    first 8,192 lanes (a launch of 64 rows, which ``row_split`` spreads
+    kernel's arguments, the window kernel's at the main window and at the
+    rescue window over ``_chunked_rescue``'s phase-1 order (``_rescue_chunk``
+    over ``_phase1_order``: the full Morton-compacted order, and its
+    first 8,192 lanes, a launch of 64 rows, which ``row_split`` spreads
     over several blocks a row), the main plan's overflow mask (sorted
-    order), and the worklist entry point's arguments on the lanes phase 2
-    takes (``_rescue_phase1`` run on the main launch's output, which the
-    arguments end with).  ``undecided`` (hybrid): the screen-space
-    stage's mask, which zeroes the other lanes' counts."""
+    order), and the worklist entry point's arguments on the lanes the
+    rescue lists (every overflow lane that fits alone; the main launch's
+    output, which the arguments end with).  ``undecided`` (hybrid): the
+    screen-space stage's mask, which zeroes the other lanes' counts."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         window_kernel as wk,
@@ -572,9 +587,8 @@ def sorted_plan(torch, sp, state, undecided=None):
     main = (*sorted_state, rel, count, ws, k_cap, sp.tables)
     out = wk.window_collide_sorted(*main, w=sp.window, k_static=sp.meta.max_tris_per_cell,
                                    gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
-    still = S._rescue_phase1(out, sorted_state, overflow, sp, key_s)
     start, count_2, fit = S._phase2_plan(sorted_state, sp)
-    lanes, n_lanes = wk.compact_lanes(still & fit)
+    lanes, n_lanes = wk.compact_lanes(overflow & fit)
     return ((key_s, lo, hi, sp.ctab),
             {"main": (main, sp.window),
              "rescue phase 1": ((*p1_state, rel_1, cnt_1, ws_1, kcap_1, sp.tables),
@@ -684,7 +698,7 @@ def window_case(torch, card: str, sp, tag: str, args, w: int) -> dict:
 
 def worklist_vs_plain(torch, sp, wl_args) -> dict:
     """The worklist entry point against its plain version (each writing
-    into its own copy of the buffers after phase 1): lanes that differ in
+    into its own copy of the main launch's output): lanes that differ in
     any bit (every lane: the unlisted ones must stay as they were), the
     largest difference, and the listed lanes' hits."""
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
@@ -710,8 +724,8 @@ def worklist_vs_plain(torch, sp, wl_args) -> dict:
 
 
 def worklist_case(torch, card: str, sp, tag: str, wl_args) -> dict:
-    """The worklist entry point (rescue phase 2) on the lanes that phase 2
-    takes in ``wl_args`` (``sorted_plan``'s): candidate spread and the
+    """The worklist entry point (the rescue) on the lanes the rescue lists
+    in ``wl_args`` (``sorted_plan``'s): candidate spread and the
     kernels' schedule (``worklist_schedule``), agreement with its plain
     version on every lane (raises on any difference), times (each
     kernel's device time apart) and bound.  Returns its kernel-table
@@ -1455,9 +1469,9 @@ def drive_p2p(torch, card: str) -> list:
 
 def per_step_launches_ok(launches: dict) -> bool:
     """The per-step sorted step (make_method_step) launches each kernel as
-    a runner step does (``check_runner_launches``), over some steps."""
+    a runner step does (``STEP_LAUNCHES``), over some steps."""
     steps = launches["cells_window_lookup"]
-    return steps > 0 and set(launches.values()) == {steps}
+    return steps > 0 and launches == {k: v * steps for k, v in STEP_LAUNCHES.items()}
 
 
 def run_cli(card: str, tag: str, argv: list) -> tuple:
@@ -1560,9 +1574,9 @@ def drive_cli(torch, card: str, snap) -> dict:
                                f"{want_c} disagree")
         if len(aggregate) != 3 or {r["num_particles"] for r in aggregate} != {n_full}:
             raise RuntimeError(f"aggregate rows {aggregate}")
-        if min(launches["bench"].values()) <= 0:
+        if launch_fault(launches["bench"]):
             raise RuntimeError(f"bench launches {launches['bench']}: a kernel of "
-                               "the path never launched")
+                               "the path never launched, or B1 at the rescue window did")
         print(f"[{card}] bench via the CLI, {n_full} particles, steps 2-{CLI_STEPS}: "
               + ", ".join(f"{m} {ms:.3f} ms/step ({c} collisions)"
                           for m, (ms, c) in printed.items())
@@ -1589,7 +1603,7 @@ def drive_cli(torch, card: str, snap) -> dict:
         # in free fall (from spawn) and at impact (from step 650) ----
         device_rescue = S._device_rescue
         rescues = {"device-sized": device_rescue,
-                   "host-looped": lambda *a, rescue_compact, **k: S._chunked_rescue(*a, **k)}
+                   "host-looped": S._chunked_rescue}
         spawn = spawn_grid(scene.config, CLI_LAYERS)
         step = S.make_method_step(scene, "spatial")
         for where, st0 in (("free fall, from spawn", spawn), ("impact, from step 650", snap)):
@@ -1795,8 +1809,9 @@ def check_rank_kernels(card: str, tag: str, who: str, rec: dict) -> None:
     if b1["hit_bad"] or b1["bits"] or b1["far"] or b2["bad"]:
         raise RuntimeError(f"{tag}, {who}: a kernel disagrees with its plain "
                            "version")
-    if min(rec["launches"].values()) <= 0:
-        raise RuntimeError(f"{tag}, {who}: a kernel of the path never launched")
+    if launch_fault(rec["launches"]):
+        raise RuntimeError(f"{tag}, {who}: a kernel of the path never launched, or "
+                           "B1 at the rescue window did")
 
 
 def _mesh_rank(rank: int, world: int, workdir: str) -> None:
@@ -1834,7 +1849,7 @@ def _mesh_rank(rank: int, world: int, workdir: str) -> None:
     local = dp.shard_state(glob, mesh)
     # the same tables without the mesh: this rank's slice alone, so the
     # mesh's cost is read in turns inside one process
-    alone = S.SortedEpisodeRunner(runner.sp, "auto", 8192, False)
+    alone = S.SortedEpisodeRunner(runner.sp, "auto", 8192)
     # a first pass of each warms this fresh process (allocator, lazily
     # loaded modules) as the main path's 600 steps warmed the
     # single-device runner; the timed passes must repeat it bit for bit
@@ -2295,6 +2310,157 @@ class _EpisodeTap:
         return state
 
 
+# the rescue's turns (phase 10): the spatial k = 7 episode in the
+# benchmark's calls of 87 steps (2001 = 23 x 87), and its free-fall step
+RESCUE_CALL_STEPS = 87
+RESCUE_FREE_FALL_STEP = 100
+
+
+def rescue_inputs(runner, spawn, step: int) -> tuple:
+    """The arguments that ``_device_rescue`` gets in step ``step`` (1 is the
+    first) of the episode ``runner`` steps from ``spawn`` in calls of
+    RESCUE_CALL_STEPS: the calls before the one that holds the step
+    replayed, that one up to the step stepped eagerly (``uncaptured``:
+    the same bits), each rescue's arguments copied on the way in.
+    Returns (kernel_out, sorted_state, overflow, key_s, ovf_count)."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+
+    before = (step - 1) // RESCUE_CALL_STEPS * RESCUE_CALL_STEPS
+    state = spawn
+    for _ in range(before // RESCUE_CALL_STEPS):
+        state = runner(state, RESCUE_CALL_STEPS)
+    kept = []
+    device_rescue = S._device_rescue
+
+    def keep(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count, syncs,
+             tap=None):
+        kept[:] = [(tuple(x.clone() for x in kernel_out),
+                    tuple(x.clone() for x in sorted_state), overflow.clone(),
+                    key_s.clone(), ovf_count.clone())]
+        return device_rescue(kernel_out, sorted_state, overflow, sp, key_s=key_s,
+                             ovf_count=ovf_count, syncs=syncs, tap=tap)
+
+    S._device_rescue = keep
+    try:
+        with S.uncaptured():
+            runner(state, step - before)
+    finally:
+        S._device_rescue = device_rescue
+    return kept[0]
+
+
+def rescue_route(torch, card: str, runner, spawn) -> dict:
+    """The rescue (``_device_rescue``: every overflow lane straight to the
+    worklist) on DragonScene at k = 7.
+
+    (a) The episode: PROTOCOL_STEPS steps from ``spawn`` in calls of
+    RESCUE_CALL_STEPS with stats, by ``runner`` (captured): the rescue
+    lists every overflow lane on every step (the ring's ``n_lanes``
+    equals its ``n_over``); ms a step.
+
+    (b) Three steps of that episode: free fall (RESCUE_FREE_FALL_STEP),
+    PROTOCOL_SNAP_STEP, and the step with the most overflow lanes.  On the
+    rescue's arguments there (``rescue_inputs``) the rescue, made eagerly
+    and replayed from a CUDA graph of the call, gives the host-looped
+    ``_chunked_rescue``'s bits and lists every overflow lane; then it is
+    timed (CUDA events around one call made eagerly and around one
+    replay, the median of REPS each, the main launch's output copied
+    back in before each call, outside the events).  Returns the numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    sp = runner.sp
+    if S._phase3_possible(sp) or PROTOCOL_STEPS % RESCUE_CALL_STEPS:
+        raise RuntimeError("the rescue's checks want a scene without phase 3 and "
+                           "whole calls")
+    t_phase = time.perf_counter()
+    n = PROTOCOL_STEPS
+    state, ovf, lanes = spawn, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n // RESCUE_CALL_STEPS):
+        state, o = runner(state, RESCUE_CALL_STEPS, with_stats=True)
+        ovf += o
+        lanes += runner.telemetry.records[-1].counters["n_lanes"].tolist()
+    torch.cuda.synchronize()
+    ms_episode = (time.perf_counter() - t0) * 1e3 / n
+    del state
+    print(f"[{card}] the rescue over the k={PROTOCOL_K} spatial episode ({n} steps, "
+          f"calls of {RESCUE_CALL_STEPS}, with stats): {ms_episode:.4f} ms/step; "
+          f"overflow mean {sum(ovf) / n:.1f}, max {max(ovf)}; listed lanes mean "
+          f"{sum(lanes) / n:.1f}, equal to the overflow on "
+          f"{sum(x == y for x, y in zip(lanes, ovf))} of {n} steps")
+    if lanes != ovf:
+        raise RuntimeError("the rescue left an overflow lane unlisted")
+    numbers = {"episode_ms_per_step": ms_episode, "mean_overflow": sum(ovf) / n}
+
+    peak = max(range(n), key=lambda i: ovf[i]) + 1
+    for where, step in (("free fall", RESCUE_FREE_FALL_STEP),
+                        (f"k={PROTOCOL_K} step {PROTOCOL_SNAP_STEP}", PROTOCOL_SNAP_STEP),
+                        ("the most overflow", peak)):
+        kernel_out, sorted_state, overflow, key_s, ovf_count = rescue_inputs(
+            runner, spawn, step)
+        n_over = int(overflow.sum())
+        if n_over != ovf[step - 1]:
+            raise RuntimeError(f"step {step}: the rescue's inputs are not the episode's")
+        bufs = tuple(x.clone() for x in kernel_out)
+        # a rescue's ``tap``: it keeps the count of the lanes listed
+        tap = types.SimpleNamespace(lanes=None)
+
+        def call():
+            return S._device_rescue(bufs, sorted_state, overflow, sp, key_s=key_s,
+                                    ovf_count=ovf_count, syncs=S.HostSyncs(), tap=tap)
+
+        def reset():
+            for x, x0 in zip(bufs, kernel_out):
+                x.copy_(x0)
+
+        host = S._chunked_rescue(tuple(x.clone() for x in kernel_out), sorted_state,
+                                 overflow, sp, key_s=key_s, ovf_count=ovf_count,
+                                 syncs=S.HostSyncs())
+        call()  # warm: allocations
+        out = tuple(x.clone() for x in bufs)
+        graph, _, _ = S._capture(call, wk.LAUNCHES)
+        reset()
+        graph.replay()
+        torch.cuda.synchronize()
+        if any(not torch.equal(x, y) for x, y in zip(bufs, out)):
+            raise RuntimeError(f"step {step}: the rescue's graph and its eager call "
+                               "disagree")
+        differ = sum(lane_diff(torch, x, y) for x, y in zip(out, host[:3]))
+        listed = int(tap.lanes)
+        ms = {}
+        for mode in ("eager", "replay"):
+            times = []
+            for _ in range(REPS):
+                reset()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                if mode == "eager":
+                    call()
+                else:
+                    graph.replay()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            times.sort()
+            ms[mode] = (times[REPS // 2 - 1] + times[REPS // 2]) / 2.0
+        print(f"[{card}] the rescue at {where} (step {step}; {n_over} overflow lanes, "
+              f"{listed} listed): lanes differing from the host-looped rescue's in "
+              f"any bit {differ}; ms eager / replayed {ms['eager']:.4f} / "
+              f"{ms['replay']:.4f}")
+        if differ or listed != n_over:
+            raise RuntimeError(f"step {step}: the rescue and the host-looped rescue "
+                               "disagree, or it left an overflow lane unlisted")
+        numbers[where] = {"step": step, "overflow": n_over, "listed": listed, "ms": ms}
+        del graph, bufs, out, host
+    print(f"[{card}] the rescue's checks: {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
 def drive_protocol(torch, card: str) -> dict:
     """Phase 10: the reference protocol's particle ladder on DragonScene
     through ``bench/protocol.py::run_protocol`` (plan "kernel", no accuracy
@@ -2312,7 +2478,8 @@ def drive_protocol(torch, card: str) -> dict:
     rescue phase 1, the 8,192-lane chunk), the worklist entry point and B2
     against their plain versions, and one step of the runner (replayed)
     against one of the per-step step with the rescue looped on the host
-    (``_chunked_rescue``) in place of its own, on every lane.
+    (``_chunked_rescue``) in place of its own, on every lane; then the
+    rescue over the episode and at three of its steps (``rescue_route``).
 
     (b) k = 0, the three methods on all four cameras, one run of 50
     steps: a row for each; each camera's undecided mask on the k = 7 state
@@ -2397,9 +2564,10 @@ def drive_protocol(torch, card: str) -> dict:
                           for a, b in PROTOCOL_WINDOWS)
               + f" ms/step (harness chunks of 50 steps); collisions {r['collisions']}")
     # two exact methods, each a runner step a step (warm-up included):
-    # each kernel once (``check_runner_launches``)
+    # each kernel as a runner step launches it (``STEP_LAUNCHES``)
     n_b2 = launches_a["cells_window_lookup"]
-    if n_b2 < 2 * PROTOCOL_STEPS or set(launches_a.values()) != {n_b2}:
+    if n_b2 < 2 * PROTOCOL_STEPS or launches_a != {
+            k: v * n_b2 for k, v in STEP_LAUNCHES.items()}:
         raise RuntimeError(f"protocol k={PROTOCOL_K} launches {launches_a}: a kernel "
                            "of the path never launched, or not once a step")
     print(f"[{card}] protocol k={PROTOCOL_K}: {wall_a:.1f} s; launches {launches_a}; "
@@ -2432,8 +2600,7 @@ def drive_protocol(torch, card: str) -> dict:
           + ", ".join(f"{k} {(e_launch[k] - m_launch[k]) / late:.4f}" for k in e_launch))
     print(f"[{card}] protocol k={PROTOCOL_K}, the spatial episode at step "
           f"{PROTOCOL_STEPS}: overflow per step max {max(ovf)}, median "
-          f"{sorted(ovf)[len(ovf) // 2]}, above {S._COMPACT_CAP} on "
-          f"{sum(o > S._COMPACT_CAP for o in ovf)} steps; host reads "
+          f"{sorted(ovf)[len(ovf) // 2]}; host reads "
           f"{(tap.runner.syncs.count - tap.syncs0) / PROTOCOL_STEPS:.2f}/step; "
           f"{tap.stats_steps} steps with stats, telemetry launches {tel_launches_a}; "
           f"collisions {coll} (row {rows[methods.index('spatial')]['collisions']}); "
@@ -2497,7 +2664,7 @@ def drive_protocol(torch, card: str) -> dict:
     t_dev = time.perf_counter() - t0
     host_step = S._sorted_step(sp, None, False)
     device_rescue = S._device_rescue
-    S._device_rescue = lambda *a_, rescue_compact, **k: S._chunked_rescue(*a_, **k)
+    S._device_rescue = S._chunked_rescue
     try:
         t0 = time.perf_counter()
         b = host_step(snap)
@@ -2517,6 +2684,10 @@ def drive_protocol(torch, card: str) -> dict:
                            f"on {differ} lanes at k={PROTOCOL_K}")
     del a, b
 
+    # ---- the rescue: an episode, three steps ----
+    numbers["rescue_route"] = rescue_route(
+        torch, card, S.SortedEpisodeRunner(sp, "auto", 8192), tap.spawn)
+
     # ---- 10(b): k = 0, the three methods on the four cameras ----
     wk.reset_launches()
     t0 = time.perf_counter()
@@ -2530,7 +2701,7 @@ def drive_protocol(torch, card: str) -> dict:
     if sorted(got) != sorted(want) or len(got) != len(want) or any(
             r["particles"] != cfg.spawn_count(1) or not r["mean_ms"] > 0 for r in rows0):
         raise RuntimeError(f"protocol k=0 on the four cameras: rows {rows0}")
-    if min(launches_b.values()) <= 0:
+    if launch_fault(launches_b):
         raise RuntimeError(f"protocol k=0 launches {launches_b}")
     print(f"[{card}] protocol k=0, {CAMERA_STEPS} steps on the four cameras: "
           f"{len(rows0)} rows ("
@@ -2659,7 +2830,7 @@ def lost_steps(launches: dict, traced: dict) -> int:
     records CUPTI dropped, not of a counter at fault); 0 otherwise,
     agreement included."""
     want = by_symbol(launches)
-    per_step = by_symbol({name: 1 for name in launches})
+    per_step = by_symbol(STEP_LAUNCHES)
     if not traced or set(traced) != set(want):
         return 0
     short = {(want[k] - traced[k]) / per_step[k] for k in want}
@@ -2982,7 +3153,7 @@ def main() -> int:
 
     # ---- the same 700 steps with capture off: the eager run of the code
     # each captured step holds, equal bit for bit ----
-    eager = S.SortedEpisodeRunner(sp, "auto", runner.resort_threshold, False)
+    eager = S.SortedEpisodeRunner(sp, "auto", runner.resort_threshold)
     e, ovf_e = state0, []
     t0 = time.perf_counter()
     with S.uncaptured():
@@ -3022,7 +3193,7 @@ def main() -> int:
 
     # ---- a reading, no default changed: steps 600-700 once more with the
     # dense-cell demotion off ----
-    nodemote = S.SortedEpisodeRunner(sp._replace(demote=None), "auto", 8192, False)
+    nodemote = S.SortedEpisodeRunner(sp._replace(demote=None), "auto", 8192)
     fence(snap600.pos)
     t0 = time.perf_counter()
     s_nd, ovf_nd = nodemote(snap600, N_STEPS - 600, with_stats=True)
@@ -3121,7 +3292,8 @@ def main() -> int:
         return {**entry, "rescue_chunk": {**numbers, "library_ms": None}}
 
     # every launch count is a counter's reading: B1's main launches count
-    # under "window_collide_sorted", its rescue launches (phase 1) under
+    # under "window_collide_sorted", its launches at the rescue window (the
+    # host-looped rescue's alone, none on these paths) under
     # "window_collide_sorted_rescue"
     rescue = "window_collide_sorted_rescue"
     h_launch = hyb["launches"]

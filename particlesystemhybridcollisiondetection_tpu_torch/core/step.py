@@ -18,7 +18,9 @@ travel-segment midpoint; look up each particle's ``(start, count)`` (the
 cells kernel, or a gather from ``cells2``); plan one candidate window per
 row of 128 sorted particles; run the window kernel (exact narrow phase,
 response and integration, fused); redo the lanes whose candidates did
-not fit their window exactly, in up to three phases (``_device_rescue``).  The
+not fit their window exactly, each alone through the window kernel's
+worklist entry point and, on scenes whose densest cell outgrows the
+rescue window, the packed path (``_device_rescue``).  The
 response runs before integration and pre-compensates it with ``-g*dt``,
 as in the reference's frame loop (ParticleSys.cs:445-527).
 
@@ -536,10 +538,8 @@ def _maybe_code_table(grid, meta, cells_lookup: str):
     return build_code_table(grid, meta, _CODE_WC) if use else None
 
 
-# Bounded-compaction buffer for the phase-1 rescue order of the
-# runner's rescue (``rescue_compact=True``); read at call time
-_COMPACT_CAP = 65536
-# the count (``LAUNCHES``) of the window kernel's launches in the rescue
+# the count (``LAUNCHES``) of the window kernel's launches in the
+# host-looped rescue (``_chunked_rescue``); the steps' rescue makes none
 _RESCUE_LAUNCHES = "window_collide_sorted_rescue"
 
 
@@ -689,29 +689,23 @@ def _phase3_possible(sp) -> bool:
 
 
 def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
-                   syncs: HostSyncs, rescue_compact: bool = False, tap=None):
+                   syncs: HostSyncs, tap=None):
     """The sorted steps' rescue: the exact redo of the window-overflow
     lanes with its work sized on the device -- no host read, no Python
     branch on a device value -- so a step can be captured and replayed.
     Gives ``_chunked_rescue``'s bits: a lane's result does not depend on its
     route through the window kernel (tests/test_torch_step.py::
-    test_rescue_routes_agree).
+    test_rescue_routes_agree).  It takes ``_chunked_rescue``'s arguments;
+    ``key_s`` orders only that one's phase 1.
 
-    Phase 1 (one window-kernel launch at ``rescue_window``): every lane in
-    the phase-1 order (overflow lanes by current Morton key, then the
-    others, which carry no candidates and return at once), or with
-    ``rescue_compact`` and N >= 2 * ``_COMPACT_CAP`` the first
-    ``_COMPACT_CAP`` overflow lanes of that order without its full-N
-    argsort (``_compact_order``; any later ones wait for phase 2).  The
-    JAX package's chunk loop is one launch here, and its per-chunk
-    majority gate is dropped: a lane its window does not fit goes to
-    phase 2 whatever its chunk's majority.  Free fall pays the argsort and
-    the launch at full extent (nothing overflows, nothing is decided).
-
-    Phase 2 (one launch of ``window_collide_worklist``): the lanes still
-    undecided whose cell fits a row's window alone (start % 128 + count
-    <= ``rescue_window``), compacted on the device; their count goes to
-    ``tap.lanes`` (a runner's ``with_stats`` step).
+    Phase 2 (one launch of ``window_collide_worklist``): every overflow
+    lane whose cell fits a row's window alone (start % 128 + count <=
+    ``rescue_window``), compacted on the device; their count goes to
+    ``tap.lanes`` (a runner's ``with_stats`` step).  There is no phase 1:
+    a row's window starts at or below each of its lanes' starts rounded
+    down to 128, so every lane that ``_chunked_rescue``'s phase 1 decides
+    fits alone and is decided here with the same bits.  Nothing of the
+    rescue runs at full N but the fit's lookup and the compaction.
 
     Phase 3 (``_packed_rescue``, host reads): the rest, on scenes where a
     cell holds more than ``rescue_window`` - 127 candidates
@@ -720,17 +714,14 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
     Returns (pos_k, vel_k, hit_k, n_over), n_over an i32 device scalar."""
     pos_k, vel_k, hit_k = kernel_out
     n_over = overflow.sum(dtype=torch.int32)
-    still = _rescue_phase1(kernel_out, sorted_state, overflow, sp, key_s,
-                           rescue_compact)
-    # ---- phase 2: each remaining lane alone, one launch ----
     start, count, fit = _phase2_plan(sorted_state, sp)
-    lanes, n_lanes = compact_lanes(still & fit)
+    lanes, n_lanes = compact_lanes(overflow & fit)
     if tap is not None:
         tap.lanes = n_lanes
     window_collide_worklist(*sorted_state, start, count, lanes, n_lanes, sp.tables,
                             pos_k, vel_k, hit_k, **_rescue_kw(sp))
     if _phase3_possible(sp):
-        _packed_rescue(pos_k, vel_k, hit_k, still & ~fit, sorted_state, ovf_count,
+        _packed_rescue(pos_k, vel_k, hit_k, overflow & ~fit, sorted_state, ovf_count,
                        sp.packed, sp.meta, sp.num_groups, sp.group, sp.gravity,
                        sp.cfg, sp.m_cap, syncs=syncs)
     return pos_k, vel_k, hit_k, n_over
@@ -743,34 +734,9 @@ def _rescue_kw(sp) -> dict:
                 gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
 
 
-def _rescue_phase1(kernel_out, sorted_state, overflow, sp, key_s,
-                   rescue_compact: bool = False):
-    """Rescue phase 1 of ``_device_rescue``, in place on ``kernel_out``:
-    one window-kernel launch at the rescue window over the phase-1 order.
-    Returns the overflow lanes it left undecided, bool[N]."""
-    pos_k, vel_k, hit_k = kernel_out
-    n = overflow.shape[0]
-    if rescue_compact and n >= 2 * _COMPACT_CAP:
-        ord1, taken = _compact_order(overflow, key_s, _COMPACT_CAP)
-    else:
-        ord1, taken = _phase1_order(overflow, key_s), overflow
-    redo, lanes1, (rel, cnt, ws, k_cap, unfit) = _rescue_chunk(
-        sorted_state, taken, ord1, sp.tables, sp.meta, sp.cfg, sp.rescue_window)
-    pos_o, vel_o, hit_o = window_collide_sorted(
-        *lanes1, rel, cnt, ws, k_cap, sp.tables, launch_key=_RESCUE_LAUNCHES,
-        **_rescue_kw(sp))
-    decided = redo & ~unfit
-    pos_k[:, ord1] = torch.where(decided[None], pos_o, pos_k[:, ord1])
-    vel_k[:, ord1] = torch.where(decided[None], vel_o, vel_k[:, ord1])
-    hit_k[ord1] = torch.where(decided, hit_o, hit_k[ord1])
-    done = torch.zeros_like(overflow)
-    done[ord1] = decided
-    return overflow & ~done
-
-
 def _phase2_plan(sorted_state, sp):
     """Rescue phase 2's inputs for every sorted lane: (start, count) from
-    ``cells2`` (midpoint lookup, as phase 1's) and whether the lane fits
+    ``cells2`` (midpoint lookup, as the main plan's) and whether the lane fits
     a row's rescue window alone (``isolated_rows``' rule)."""
     pos_s, vel_s = sorted_state[:2]
     info = sp.tables.cells2[:, cell_index(lookup_pos(pos_s, vel_s, sp.cfg.dt),
@@ -781,15 +747,16 @@ def _phase2_plan(sorted_state, sp):
 
 
 def _phase1_order(overflow, key_s):
-    """Phase-1 rescue order: overflow lanes by current Morton key (ties
-    by lane), then the other lanes."""
+    """``_chunked_rescue``'s phase-1 order: overflow lanes by current
+    Morton key (ties by lane), then the other lanes."""
     return torch.argsort(torch.where(overflow, key_s, 1 << 30), stable=True)
 
 
 def _rescue_chunk(sorted_state, overflow, pick, tables, meta, cfg,
                   rescue_window: int):
-    """Inputs of one phase-1 rescue launch (lanes ``pick`` of the sorted
-    state): (redo mask, chunk state, window plan with ``unfit``)."""
+    """Inputs of one launch of ``_chunked_rescue``'s phase 1 (lanes
+    ``pick`` of the sorted state): (redo mask, chunk state, window plan
+    with ``unfit``)."""
     pos_s, vel_s, radius_s, restit_s = sorted_state
     redo = overflow[pick]
     pos_c = pos_s[:, pick]
@@ -816,37 +783,6 @@ def _isolated_plan(sorted_state, redo, pick, tables, meta, cfg,
     info = tables.cells2[:, cell_index(lookup_pos(pos_c, vel_c, cfg.dt), meta)]
     return isolated_rows(pos_c, vel_c, radius_s[pick], restit_s[pick], info[0],
                          torch.where(redo, info[1], 0), rescue_window)
-
-
-def _compact_order(overflow, key_s, cap: int):
-    """The phase-1 launch's lanes without a full-N argsort: the first
-    ``cap`` overflow lanes (lane order) sorted by current Morton key,
-    ties by lane, then the other lanes in lane order, ``cap`` rounded up
-    to whole blocks in all -- the argsort's first lanes when at most
-    ``cap`` lanes overflow.  Returns (order i64[m], the overflow lanes it
-    takes bool[N]); any later overflow lanes take phase 2."""
-    n = overflow.shape[0]
-    dev = overflow.device
-    m = -(-cap // BLOCK) * BLOCK
-    lanes = torch.arange(n, dtype=torch.int32, device=dev)
-    rank = torch.cumsum(overflow.to(torch.int32), 0) - 1
-    taken = overflow & (rank < cap)
-    slot = torch.where(taken, rank, cap).long()  # slot cap: dropped
-    keys_c = torch.full((cap + 1,), 1 << 30, dtype=key_s.dtype, device=dev)
-    keys_c.scatter_(0, slot, key_s)
-    idx_c = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
-    idx_c.scatter_(0, slot, lanes)
-    _, o = torch.sort(keys_c[:cap], stable=True)
-    head = idx_c[:cap][o]
-    rank_o = torch.cumsum((~taken).to(torch.int32), 0) - 1
-    slot_o = torch.where(taken, m, torch.clamp(rank_o, max=m)).long()
-    other = torch.zeros((m + 1,), dtype=torch.int32, device=dev)
-    other.scatter_(0, slot_o, lanes)
-    n_taken = taken.sum()
-    pos_in = torch.arange(m, device=dev)
-    order = torch.where(pos_in < n_taken, head[torch.clamp(pos_in, max=cap - 1)],
-                        other[torch.clamp(pos_in - n_taken, min=0)])
-    return order.long(), taken
 
 
 def check_speed_cover(cfg: SimConfig, num_steps: int | None = None,
@@ -950,7 +886,7 @@ def _build_sorted(triangles, cfg, *, window, fallback_capacity, cells_lookup,
 
 
 def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
-                    syncs: HostSyncs, *, active_s=None, rescue_compact: bool = False,
+                    syncs: HostSyncs, *, active_s=None,
                     tap: Optional[StepRing] = None):
     """Plan + window kernel + rescue on particles in (approximately)
     sorted order; ``key_s`` is their current Morton key.  ``active_s``
@@ -985,8 +921,7 @@ def _collide_sorted(sp: _Sorted, pos_s, vel_s, radius_s, restit_s, key_s,
         tap.stamp("main")
     sorted_state = (pos_s, vel_s, radius_s, restit_s)
     return _device_rescue(kernel_out, sorted_state, overflow, sp, key_s=key_s,
-                          ovf_count=ovf_count, syncs=syncs,
-                          rescue_compact=rescue_compact, tap=tap)
+                          ovf_count=ovf_count, syncs=syncs, tap=tap)
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -1224,7 +1159,7 @@ class SortedEpisodeRunner:
     (``core/telemetry.py::step_span``)."""
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
-                 rescue_compact: bool, tex=None, mesh=None,
+                 tex=None, mesh=None,
                  telemetry: Optional[Telemetry] = None):
         if resort_every != "auto" and (
                 not isinstance(resort_every, int) or resort_every < 1):
@@ -1233,7 +1168,6 @@ class SortedEpisodeRunner:
         self.sp = sp
         self.resort_every = resort_every
         self.resort_threshold = resort_threshold
-        self.rescue_compact = rescue_compact
         self.tex = tex
         self.mesh = mesh
         self.syncs = HostSyncs()
@@ -1259,8 +1193,7 @@ class SortedEpisodeRunner:
     def _collide(self, rows8, key_s, active_s, tap=None):
         return _collide_sorted(
             self.sp, rows8[0:3], rows8[3:6], rows8[6], rows8[7], key_s,
-            self.syncs, active_s=active_s,
-            rescue_compact=self.rescue_compact, tap=tap,
+            self.syncs, active_s=active_s, tap=tap,
         )
 
     def _ss_stage(self, rows8, aux):
@@ -1468,7 +1401,6 @@ def make_sorted_episode_runner(
     cells_lookup: str = "auto",
     dense_demote: "int | None | str" = "auto",
     resort_threshold: int = 8192,
-    rescue_compact: bool = False,
     device="cuda",
 ) -> SortedEpisodeRunner:
     """Episode runner with PERSISTENT sorted order: the state stays in
@@ -1479,9 +1411,7 @@ def make_sorted_episode_runner(
     ``resort_every=k``: re-sort every k-th step (the rescue keeps steps
     in between exact).  ``"auto"``: re-sort when the previous step's
     overflow exceeds the overflow measured right after the most recent
-    sort by ``resort_threshold``.  ``rescue_compact``: build the phase-1
-    rescue order by bounded compaction instead of a full-N argsort (the
-    same results; ``_device_rescue``).  On CUDA each step is replayed
+    sort by ``resort_threshold``.  On CUDA each step is replayed
     from a captured CUDA graph (``SortedEpisodeRunner``).
 
     ``camera`` (with ``normals``, the per-corner shading normals of the
@@ -1513,7 +1443,7 @@ def make_sorted_episode_runner(
         fence(sp.gravity)
         setup.lap("bake")
     return SortedEpisodeRunner(sp, resort_every, resort_threshold,
-                               rescue_compact, tex=tex, mesh=mesh,
+                               tex=tex, mesh=mesh,
                                telemetry=Telemetry(setup))
 
 

@@ -3,9 +3,10 @@
 // Replaces the TPU kernel _kernel of the JAX package
 // (particlesystemhybridcollisiondetection_tpu/ops/pallas/window_kernel.py,
 // launched by window_collide_sorted), as the main pass of every sorted
-// step, as the phase-1 rescue kernel and, through a second entry point
-// (psys_window_collide_worklist, at the end), as rescue phase 2: a list of
-// lanes compacted on the device, each alone, with no window.  That entry
+// step, as the phase-1 kernel of the host-looped reference rescue and,
+// through a second entry point (psys_window_collide_worklist, at the end),
+// as the steps' rescue: a list of lanes compacted on the device, each
+// alone, with no window.  That entry
 // point stands for the phase-2 rescue of the TPU kernel's callers
 // (core/step.py:840-1103 of the JAX package, which relaunches _kernel on
 // rows of isolated lanes).  What bounds it is operations where the listed

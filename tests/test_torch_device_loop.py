@@ -87,9 +87,10 @@ def _sorted_inputs(triangles, cfg, probe, window):
 
 
 def test_device_rescue_matches_host_and_jax(fast, dense_probe, monkeypatch):
-    """Window 128 on the dense probe: phase 1 (one launch) and phase 2
-    (the worklist) both run.  The runner's rescue equals the host-read
-    rescue bit for bit with no host read, and the JAX package's rescue
+    """Window 128 on the dense probe: the runner's rescue takes every
+    overflow lane through the worklist (no phase 1 runs) and equals the
+    host-read rescue (B1 at the rescue window first, then phase 2) bit
+    for bit with no host read, and the JAX package's rescue
     (interpret mode; its second phase is the packed path, which rounds
     differently) at rtol 1e-5 / atol 1e-6 with the hits exact."""
     cfg, probe = dense_probe
@@ -136,6 +137,68 @@ def test_device_rescue_matches_host_and_jax(fast, dense_probe, monkeypatch):
     # the whole vector, so their absolute tolerance is 1e-5
     np.testing.assert_allclose(dev[1].numpy()[:, act], np.asarray(j[1])[:, act],
                                rtol=1e-5, atol=1e-5)
+
+
+def test_rescue_lists_every_overflow_lane(fast, dense_probe, monkeypatch):
+    """Window 128 on the dense probe, a runner's steps with stats: the
+    worklist lists every overflow lane of every step (the ring's
+    ``n_lanes`` equals its ``n_over``, and the overflow is not 0), and
+    no step launches B1 at the rescue window."""
+    cfg, probe = dense_probe
+    rescue_launches = []
+    window_collide_sorted = tstep.window_collide_sorted
+
+    def spy(*a, launch_key="window_collide_sorted", **k):
+        if launch_key == tstep._RESCUE_LAUNCHES:
+            rescue_launches.append(launch_key)
+        return window_collide_sorted(*a, launch_key=launch_key, **k)
+
+    monkeypatch.setattr(tstep, "window_collide_sorted", spy)
+    runner = tstep.make_sorted_episode_runner(fast.triangles, cfg, window=SMALL_WINDOW,
+                                              resort_every="auto", device="cpu")
+    before = twk.LAUNCHES[tstep._RESCUE_LAUNCHES]
+    _, ovf = runner(convert.state_from_numpy(probe, device="cpu"), 4, with_stats=True)
+    counters = runner.telemetry.records[-1].counters
+    assert min(ovf) > 0
+    assert counters["n_lanes"].tolist() == counters["n_over"].tolist() == ovf
+    assert not rescue_launches
+    assert twk.LAUNCHES[tstep._RESCUE_LAUNCHES] == before
+
+
+def test_phase3_takes_the_unfit_overflow_lanes(fast, dense_probe, monkeypatch):
+    """With phase 3 let run and the fit refused on every third lane, phase
+    3 receives exactly the overflow lanes that do not fit
+    (``overflow & ~fit``) and the worklist lists the others."""
+    cfg, probe = dense_probe
+    sp, st, out, overflow, ovf_count, key_s = _sorted_inputs(
+        fast.triangles, cfg, probe, SMALL_WINDOW)
+    plan = tstep._phase2_plan
+    seen = {}
+
+    def refuse_some(*a, **k):
+        start, count, fit = plan(*a, **k)
+        seen["fit"] = fit & (torch.arange(fit.shape[0]) % 3 != 0)
+        return start, count, seen["fit"]
+
+    def listed(*a, **k):
+        seen["listed"] = int(a[7])  # n_lanes
+        return worklist(*a, **k)
+
+    def packed(*a, **k):
+        seen["still"] = a[3].clone()
+        return packed_rescue(*a, **k)
+
+    worklist, packed_rescue = tstep.window_collide_worklist, tstep._packed_rescue
+    monkeypatch.setattr(tstep, "_phase2_plan", refuse_some)
+    monkeypatch.setattr(tstep, "_phase3_possible", lambda sp: True)
+    monkeypatch.setattr(tstep, "window_collide_worklist", listed)
+    monkeypatch.setattr(tstep, "_packed_rescue", packed)
+    tstep._device_rescue(tuple(x.clone() for x in out), st, overflow, sp, key_s=key_s,
+                         ovf_count=ovf_count, syncs=tstep.HostSyncs())
+    want = overflow & ~seen["fit"]
+    assert want.any() and (overflow & seen["fit"]).any()
+    assert torch.equal(seen["still"], want)
+    assert seen["listed"] == int((overflow & seen["fit"]).sum())
 
 
 def test_worklist_plain_matches_one_lane_per_row(fast, dense_probe):
@@ -255,8 +318,7 @@ def test_phase3_scene_keeps_its_reads(fast, monkeypatch):
     assert sum(packed_lanes) >= 8, packed_lanes
     assert runner.syncs.count >= 2  # the still count and a group bound
     step = tstep.make_spatial_step_sorted(tris, cfg, device="cpu")
-    monkeypatch.setattr(tstep, "_device_rescue",
-                        lambda *a, rescue_compact, **k: tstep._chunked_rescue(*a, **k))
+    monkeypatch.setattr(tstep, "_device_rescue", tstep._chunked_rescue)
     want = step(state)
     assert step.syncs.count >= 3  # the overflow, the still counts
     assert int(want.collisions.sum()) > 0

@@ -95,11 +95,10 @@ def dense_probe(fast):
 
 
 def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
-    """Window 128 on the dense probe: overflow everywhere, and both
-    rescue phases that fitting cells need run -- phase 1 relaunches the
-    window kernel on Morton-compacted lanes, phase 2 runs its worklist
-    entry point, each listed lane alone; no cell of this scene needs
-    phase 3 (the packed path).
+    """Window 128 on the dense probe: overflow everywhere, and the
+    rescue that fitting cells need runs -- one launch of the window
+    kernel's worklist entry point, each overflow lane alone; no cell of
+    this scene needs phase 3 (the packed path).
     Port gather and kernel plans agree bitwise, and with the JAX step on
     the same state.  (Later steps of this spawn hit shared-edge near-ties
     that round differently under XLA's fused multiply-adds: ROADMAP.md
@@ -132,8 +131,8 @@ def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
         out, st = step(convert.state_from_numpy(probe, device="cpu"))
         assert st["window_overflow"] > 0
         outs[plan] = snapshot(out)
-    # per plan: the main launch and phase 1's, and one worklist launch
-    assert calls["window"] == 4 and calls["worklist"] == 2, calls
+    # per plan: the main launch and one worklist launch
+    assert calls["window"] == 2 and calls["worklist"] == 2, calls
     assert calls["packed"] == 0, calls
     for f in ("pos", "vel", "collisions"):
         np.testing.assert_array_equal(outs["kernel"][f], outs["gather"][f], err_msg=f)
@@ -150,12 +149,14 @@ def test_rescue_phases_match_jax_under_overflow(fast, dense_probe, monkeypatch):
 
 def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
     """Every route of a lane through the window kernel gives the same
-    bits: with every lane of phase 1 refused (all of them then take
-    phase 2, each alone through the worklist entry point) the step equals
-    the default step bit for bit.  With phase 2 refused too, phase 3 (the
-    packed path, for cells larger than the rescue window, here let run
-    on a scene that has none) takes the lanes: exact collisions,
-    positions within rtol 1e-5 / atol 1e-6 (it rounds differently)."""
+    bits: the default step (every overflow lane alone through the
+    worklist entry point, no phase-1 chunk built) equals bit for bit the
+    step with the rescue looped on the host in its place
+    (``_chunked_rescue``: B1 at the rescue window first, then the lanes
+    it leaves one per row).  With the fit refused, phase 3 (the packed
+    path, for cells larger than the rescue window, here let run on a
+    scene that has none) takes the lanes: exact collisions, positions
+    within rtol 1e-5 / atol 1e-6 (it rounds differently)."""
     cfg, probe = dense_probe
     mask = probe["pos"][0] < 1e37
 
@@ -166,25 +167,35 @@ def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
         assert st["window_overflow"] > 0
         return snapshot(out)
 
-    base = run()
-    assert (base["collisions"] - probe["collisions"]).sum() > 0
     rc, p2, wcw = tstep._rescue_chunk, tstep._phase2_plan, tstep.window_collide_worklist
-    calls = {"listed": 0, "packed": 0}
+    wcs = tstep.window_collide_sorted
+    calls = {"listed": 0, "packed": 0, "chunks": 0, "phase 1": 0}
 
-    def refuse_chunk(*a, **k):
-        redo, chunk, (rel, cnt, ws, k_cap, unfit) = rc(*a, **k)
-        return redo, chunk, (rel, cnt, ws, k_cap, torch.ones_like(unfit))
+    def count_chunks(*a, **k):
+        calls["chunks"] += 1
+        return rc(*a, **k)
 
     def count_listed(*a, **k):
         calls["listed"] += int(a[7])  # n_lanes
         return wcw(*a, **k)
 
-    monkeypatch.setattr(tstep, "_rescue_chunk", refuse_chunk)
+    def count_phase1(*a, **k):
+        calls["phase 1"] += k.get("launch_key") == tstep._RESCUE_LAUNCHES
+        return wcs(*a, **k)
+
+    monkeypatch.setattr(tstep, "_rescue_chunk", count_chunks)
     monkeypatch.setattr(tstep, "window_collide_worklist", count_listed)
-    phase2 = run()
-    assert calls["listed"] >= 1
+    monkeypatch.setattr(tstep, "window_collide_sorted", count_phase1)
+    base = run()
+    assert (base["collisions"] - probe["collisions"]).sum() > 0
+    assert calls["listed"] >= 1 and calls["chunks"] == calls["phase 1"] == 0
+    device_rescue = tstep._device_rescue
+    monkeypatch.setattr(tstep, "_device_rescue", tstep._chunked_rescue)
+    host = run()
+    assert calls["chunks"] >= 1 and calls["phase 1"] >= 1
     for f in ("pos", "vel", "collisions"):
-        np.testing.assert_array_equal(phase2[f], base[f], err_msg=f)
+        np.testing.assert_array_equal(host[f], base[f], err_msg=f)
+    monkeypatch.setattr(tstep, "_device_rescue", device_rescue)
 
     scp = tstep.spatial_collide_packed
 
@@ -206,9 +217,8 @@ def test_rescue_routes_agree(fast, dense_probe, monkeypatch):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_dense_demote_and_compact_order_are_exact(fast, jax_traj, monkeypatch):
-    """Demoting dense-cell lanes to the rescue, and building the phase-1
-    order by bounded compaction, change no result bit."""
+def test_dense_demote_and_compact_order_are_exact(fast, jax_traj):
+    """Demoting dense-cell lanes to the rescue changes no result bit."""
     snaps, _ = jax_traj
     probe = convert.state_from_numpy(snaps[STEPS], device="cpu")
     cfg = fast.config
@@ -221,17 +231,6 @@ def test_dense_demote_and_compact_order_are_exact(fast, jax_traj, monkeypatch):
     assert st["window_overflow"] > 0
     for f in ("pos", "vel", "collisions"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
-
-    state = convert.state_from_numpy(snaps[0], device="cpu")
-    base = tstep.make_sorted_episode_runner(fast.triangles, cfg, resort_every=7,
-                                            device="cpu")
-    r0 = base(state, 75)
-    monkeypatch.setattr(tstep, "_COMPACT_CAP", 256)  # engage at n = 1024
-    compact = tstep.make_sorted_episode_runner(
-        fast.triangles, cfg, resort_every=7, rescue_compact=True, device="cpu")
-    r1 = compact(state, 75)
-    for f in ("pos", "vel", "collisions"):
-        assert torch.equal(getattr(r1, f), getattr(r0, f)), f
 
 
 def test_runner_matches_per_step_and_jax(fast):

@@ -34,7 +34,7 @@ STEPS = 60
 METHODS = ["spatial", "hybrid"]
 # what a step of the runner launches, by wrapper (B2 with the code table)
 STEP_LAUNCHES = {"cells_window_lookup": 1, "window_collide_sorted": 1,
-                 "window_collide_sorted_rescue": 1, "window_collide_worklist": 1}
+                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1}
 
 
 @pytest.fixture(scope="module")
