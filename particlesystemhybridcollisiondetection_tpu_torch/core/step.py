@@ -110,7 +110,6 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
 from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
     StepRing,
     Telemetry,
-    step_span,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as tk
 from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_parallel as dp
@@ -1352,7 +1351,7 @@ class SortedEpisodeRunner:
         graphed = self.graphed and _CAPTURE
         call = self.telemetry.calls
         self.telemetry.calls += 1
-        ring, rows = None, []
+        ring = None
         if with_stats:
             ring = self._rings.get(n)
             if ring is None:
@@ -1362,19 +1361,12 @@ class SortedEpisodeRunner:
         # mesh, from the overflow summed over it: every rank reads the
         # same flag and takes the same branch)
         do_sort = True
-        for i in range(num_steps):
-            if with_stats:
-                if i and i % ring.cap == 0:
-                    rows.append(ring.drain(ring.cap))
-                with step_span():
-                    do_sort = self._advance(n, b, i, do_sort, graphed, ring)
-            else:
-                do_sort = self._advance(n, b, i, do_sort, graphed, None)
-        overflows = []
-        if with_stats and num_steps:
-            rows.append(ring.drain(num_steps - len(rows) * ring.cap))
-            rec = self.telemetry.keep(call, np.concatenate(rows))
-            overflows = rec.counters["n_over"].tolist()
+
+        def step(i: int) -> None:
+            nonlocal do_sort
+            do_sort = self._advance(n, b, i, do_sort, graphed, ring)
+
+        overflows = self.telemetry.steps(call, ring, num_steps, step)
         if with_stats and self.resort_every != "auto" and self.mesh is not None:
             overflows = dp.sum_int_list(overflows, self.mesh)
         self.steps += num_steps
@@ -1703,7 +1695,24 @@ class P2PEpisodeRunner:
     captures it, and every step from then on replays it.  ``launches``
     holds a replay's kernel launches, which each replay adds to the p2p
     kernel's ``LAUNCHES``.  ``uncaptured()`` steps eagerly.  A failed
-    capture raises."""
+    capture raises.
+
+    ``telemetry`` (``core/telemetry.py::Telemetry``) holds the set-up lap
+    ``capture`` (the first step for a count and its capture) and, for
+    every ``with_stats`` call, its steps' stage times and counters, as the
+    sorted runner's does.  Such a call steps with a ``StepRing``: stamps of
+    the device clock at the step's start, after the order (cell key,
+    stable sort, CSR offsets, row gather and pad), after B3's cells
+    launch ("main"), after the fallback's compaction and worklist launch
+    ("rescue") and at the step's end (walls, integration, write-back),
+    which also copies the window overflow and the fallback's listed lanes
+    into the step's ring row; the ring is read once after the call's last
+    step.  Those steps replay a graph of their own (captured on the first
+    ``with_stats`` call), so a call without stats replays a graph without
+    a stamp; ``telemetry_launches`` holds the stamped graph's telemetry
+    kernel launches, which every replay of it adds to
+    ``telemetry_kernel.LAUNCHES``.  Each step of a ``with_stats`` call runs
+    inside the profiler span "psys.runner.step"."""
 
     def __init__(self, box_lo, box_hi, cfg: SimConfig, meta: pg.PGridMeta,
                  window: int, fallback_capacity: int, device: torch.device):
@@ -1718,11 +1727,16 @@ class P2PEpisodeRunner:
         self.steps = 0
         #: steps are captured and replayed (CUDA)
         self.graphed = device.type == "cuda"
-        #: kernel launches per replay, by wrapper, once captured
+        #: kernel launches per replay, by wrapper, once captured (the
+        #: telemetry's stamps are not counted)
         self.launches: dict = {}
+        #: telemetry kernel launches per replay of the stamped graph
+        self.telemetry_launches: dict = {}
+        self.telemetry = Telemetry(Stopwatch())
         self._carry: dict = {}  # n_k -> _P2PCarry
-        self._graphs: dict = {}  # n_k -> CUDAGraph
-        self._warm: set = set()  # n_k whose first step ran (eagerly)
+        self._rings: dict = {}  # n_k -> StepRing
+        self._graphs: dict = {}  # (n_k, with stats) -> CUDAGraph
+        self._warm: set = set()  # (n_k, with stats) whose first step ran eagerly
 
     def _carry_for(self, n_k: int, dev) -> _P2PCarry:
         b = self._carry.get(n_k)
@@ -1733,16 +1747,21 @@ class P2PEpisodeRunner:
                 aux=torch.empty((2, n_k), **i32), n_over=torch.zeros((), **i32))
         return b
 
-    def _step(self, b: _P2PCarry):
+    def _step(self, b: _P2PCarry, ring: Optional[StepRing] = None):
         """One step in place on the carried buffers: plan + kernel, the
         device-sized fallback, then walls and integration in sorted
-        order."""
+        order.  With ``ring`` the step stamps its stages and writes its
+        counters (class docstring)."""
+        if ring is not None:
+            ring.stamp("start")
         rows8, aux = b.rows8, b.aux
         active = torch.abs(rows8[0]) < FLOAT_SENTINEL * 0.5
         cid_key = p2ps._cell_key(rows8[0:3], self.meta, active)
         parts = p2ps._phase1_core(rows8, cid_key, self.meta, beta=0.5,
-                                  window=self.window)
-        pos_k, vel_k, ncon_k, n_over = p2ps._p2p_device_fallback(parts, 0.5)
+                                  window=self.window, tap=ring)
+        pos_k, vel_k, ncon_k, n_over = p2ps._p2p_device_fallback(parts, 0.5, tap=ring)
+        if ring is not None:
+            ring.stamp("rescue")
         rows_s, perm = parts.rows_s, parts.perm
         aux_s = aux[:, perm]
         st = _walls_integrate(
@@ -1758,12 +1777,43 @@ class P2PEpisodeRunner:
         aux[0].copy_(aux_s[0] + ncon_k)
         aux[1].copy_(aux_s[1])
         b.n_over.copy_(n_over)
+        if ring is not None:
+            ring.end(b.n_over)
+
+    def _advance(self, n_k: int, b: _P2PCarry, graphed: bool,
+                 ring: Optional[StepRing]) -> None:
+        """One step: replay the graph of (n_k, with stats), or step
+        eagerly.  The first step for a key (eager: its kernels load before
+        any capture) and the capture are timed as the set-up lap
+        "capture"."""
+        key = (n_k, ring is not None)
+        g = self._graphs.get(key) if graphed else None
+        if g is None and key in self._warm and not graphed:
+            self._step(b, ring)
+        elif g is None:
+            setup = self.telemetry.setup
+            setup.restart()
+            if key in self._warm:
+                g, _, (self.launches, telemetry) = _capture(
+                    lambda: self._step(b, ring), P2P_LAUNCHES, tk.LAUNCHES)
+                self._graphs[key] = g
+                if ring is not None:
+                    self.telemetry_launches = telemetry
+            else:
+                self._step(b, ring)
+                self._warm.add(key)
+            fence(b.rows8)
+            setup.lap("capture")
+        if g is not None:
+            _replay(g, self.launches, P2P_LAUNCHES)
+            if ring is not None:
+                _tally(self.telemetry_launches, tk.LAUNCHES)
 
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
         """``with_stats=True``: also return the per-step counts of lanes
-        redone by the window-overflow fallback (host ints, read once after
-        the last step)."""
+        redone by the window-overflow fallback (host ints, the ring's
+        "n_over" column, read once after the last step)."""
         n = state.pos.shape[-1]
         dev = state.pos.device
         if dev != self.gravity.device:
@@ -1778,21 +1828,15 @@ class P2PEpisodeRunner:
             b.aux[0, n:].zero_()
         b.aux[1].copy_(torch.arange(n_k, dtype=torch.int32, device=dev))
         graphed = self.graphed and _CAPTURE
-        overflows = []
-        for _ in range(num_steps):
-            g = self._graphs.get(n_k) if graphed else None
-            if g is None and graphed and n_k in self._warm:
-                g, _, (self.launches,) = _capture(lambda: self._step(b), P2P_LAUNCHES)
-                self._graphs[n_k] = g
-            if g is None:
-                self._step(b)
-                self._warm.add(n_k)
-            else:
-                _replay(g, self.launches, P2P_LAUNCHES)
-            if with_stats:
-                overflows.append(b.n_over.clone())
-        if overflows:
-            overflows = torch.stack(overflows).tolist()
+        call = self.telemetry.calls
+        self.telemetry.calls += 1
+        ring = None
+        if with_stats:
+            ring = self._rings.get(n_k)
+            if ring is None:
+                ring = self._rings[n_k] = StepRing(dev, hybrid=False)
+        overflows = self.telemetry.steps(
+            call, ring, num_steps, lambda i: self._advance(n_k, b, graphed, ring))
         self.steps += num_steps
         # restore the original order once
         ids = b.aux[1].long()

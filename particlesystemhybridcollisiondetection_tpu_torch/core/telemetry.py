@@ -1,8 +1,8 @@
-"""The sorted episode runner's telemetry (``core/step.py::
-SortedEpisodeRunner``, its ``with_stats`` calls): stage stamps and
-counters written on the device inside each step, one ring row a step,
-read once a call; the host span around each step's flag read and
-replay; the set-up laps.
+"""The episode runners' telemetry (``core/step.py``: the sorted runner
+``SortedEpisodeRunner`` and the gravity box's ``P2PEpisodeRunner``, their
+``with_stats`` calls): stage stamps and counters written on the device
+inside each step, one ring row a step, read once a call; the host span
+around each step's replay; the set-up laps.
 
   * ``StepRing``: a runner's ring, step counter and undecided
     accumulator for one particle count (the addresses its stamped graphs
@@ -11,6 +11,15 @@ replay; the set-up laps.
     count, and a ``CallStamps`` for each of the newest ``KEEP_CALLS``
     ``with_stats`` calls.
   * ``step_span``: the profiler span ``STEP_SPAN`` a stats step runs in.
+
+The stamps are the same for both runners; a runner leaves out those that
+its step has not (the p2p runner: ``screenspace``), and its stages are
+named by the stamp that ends them.  Sorted runner: ``order`` (Morton
+key, sort, permutes), ``main`` (plan, B2, B1's main launch), ``rescue``,
+``end``.  P2p runner: ``order`` (cell key, stable sort, CSR offsets, row
+gather and pad), ``main`` (B3's cells launch), ``rescue`` (the
+fallback's compaction and B3's worklist launch), ``end`` (walls,
+integration, write-back).
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ STAMPS = ("start", "screenspace", "order", "main", "rescue", "end")
 COUNTERS = ("n_over", "undecided", "n_lanes")
 #: the ``with_stats`` calls whose records a runner keeps, the newest
 KEEP_CALLS = 1024
-#: the ``torch.profiler`` span around each step (its flag read and its
-#: replay) of a runner's ``with_stats`` call
+#: the ``torch.profiler`` span around each step (the sorted runner's flag
+#: read, the replay) of a runner's ``with_stats`` call
 STEP_SPAN = "psys.runner.step"
 
 
@@ -48,8 +57,9 @@ class StepRing:
     addresses a captured step holds: the ring (i64[cap, 9], one row a
     step: the ``STAMPS`` in ns, then the ``COUNTERS``; -1 where a step
     writes nothing), the device step counter that selects the row, the
-    hybrid's undecided accumulator, and ``lanes``, rescue phase 2's lane
-    count of the step being issued (set by ``_device_rescue``)."""
+    hybrid's undecided accumulator, and ``lanes``, the lane count of the
+    step's worklist launch as it is issued (set by the sorted steps'
+    ``_device_rescue`` and the p2p step's ``_p2p_device_fallback``)."""
 
     def __init__(self, device, hybrid: bool, cap: int = 4096):
         self.ring = torch.full((cap, len(STAMPS) + len(COUNTERS)), -1,
@@ -95,10 +105,11 @@ class CallStamps(NamedTuple):
 
 
 class Telemetry:
-    """What a sorted runner records (``runner.telemetry``): its set-up laps
-    (``setup_laps``: ``tables``, ``bake`` for the hybrid, ``capture``), the
-    count of its calls, and ``records``, a ``CallStamps`` for each of the
-    newest ``KEEP_CALLS`` ``with_stats`` calls."""
+    """What a runner records (``runner.telemetry``): its set-up laps
+    (``setup_laps``: the sorted runner's ``tables``, ``bake`` for the
+    hybrid, and every runner's ``capture``), the count of its calls, and
+    ``records``, a ``CallStamps`` for each of the newest ``KEEP_CALLS``
+    ``with_stats`` calls."""
 
     def __init__(self, setup: Stopwatch):
         self.setup = setup
@@ -112,8 +123,8 @@ class Telemetry:
     def keep(self, call: int, rows: np.ndarray) -> CallStamps:
         """Decode a call's ring rows (``StepRing.drain``) and keep them.
         A stage runs from the stamp before it to its own; a stamp that no
-        step wrote (the screen-space one of the spatial method) is left
-        out."""
+        step wrote (the screen-space one of the spatial method and of the
+        p2p runner) is left out."""
         t = rows[:, :len(STAMPS)]
         present = [k for k in range(len(STAMPS)) if (t[:, k] >= 0).all()]
         stages = {STAMPS[k]: (t[:, k] - t[:, j]) / 1e6
@@ -125,3 +136,24 @@ class Telemetry:
             counters={c: rows[:, len(STAMPS) + i] for i, c in enumerate(COUNTERS)})
         self.records.append(rec)
         return rec
+
+    def steps(self, call: int, ring: "StepRing | None", num_steps: int, step) -> list:
+        """Run ``step(i)`` for each of a call's ``num_steps`` steps.  With a
+        ``ring`` (a ``with_stats`` call) each step runs inside the span
+        ``STEP_SPAN``, the ring is drained every ``ring.cap`` steps and
+        after the last, and the call's record is kept; returns its
+        per-step "n_over" counts (host ints; none without a ring)."""
+        if ring is None:
+            for i in range(num_steps):
+                step(i)
+            return []
+        rows = []
+        for i in range(num_steps):
+            if i and i % ring.cap == 0:
+                rows.append(ring.drain(ring.cap))
+            with step_span():
+                step(i)
+        if not num_steps:
+            return []
+        rows.append(ring.drain(num_steps - len(rows) * ring.cap))
+        return self.keep(call, np.concatenate(rows)).counters["n_over"].tolist()

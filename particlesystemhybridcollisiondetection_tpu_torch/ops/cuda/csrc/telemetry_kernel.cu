@@ -1,13 +1,14 @@
-// In-graph telemetry of the sorted episode runner's step (its calls with
-// with_stats=True; ops/cuda/telemetry_kernel.py wraps these).  No TPU
-// kernel stands behind it: the JAX package times its steps from outside.
+// In-graph telemetry of the episode runners' steps (the sorted and the
+// p2p runner, their calls with with_stats=True; ops/cuda/telemetry_kernel.py
+// wraps these).  No TPU kernel stands behind it: the JAX package times its
+// steps from outside.
 //
 // psys_stamp_kernel: one thread writes the device's %globaltimer (ns)
 // into slot `slot` of the ring row that the device step counter selects
 // (row = step % cap of an int64 [cap, width] ring).  The step's last stamp
 // also copies the step's counters into the row's slots `counters_at` ..
 // `counters_at` + 2 (the window overflow, the screen-space stage's
-// undecided real lanes, rescue phase 2's listed lanes; -1 where a pointer
+// undecided real lanes, the worklist launch's listed lanes; -1 where a pointer
 // is null), sets the undecided accumulator back to 0 and advances the
 // step counter.  Nothing is read on the host inside a step: the stamps
 // ride the captured graph between the stages they separate, in stream

@@ -1,5 +1,5 @@
-"""The sorted runner's in-graph telemetry kernels, for CUDA
-(``csrc/telemetry_kernel.cu``):
+"""The episode runners' in-graph telemetry kernels (the sorted runner's and
+the p2p runner's), for CUDA (``csrc/telemetry_kernel.cu``):
 
   * ``stamp``: the device clock (``%globaltimer``, ns) into one slot of
     the ring row that the device step counter selects; the step's last

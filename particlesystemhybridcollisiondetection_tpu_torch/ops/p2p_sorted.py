@@ -260,9 +260,12 @@ def _phase1_core(
     *,
     beta: float,
     window: int,
+    tap=None,
 ) -> WindowParts:
     """Sort + CSR offsets + kernel, rows-level (shared by the state-based
-    phase 1 and the persistent-order episode runner)."""
+    phase 1 and the persistent-order episode runner).  ``tap`` (a
+    runner's ``with_stats`` step, ``core/telemetry.py::StepRing``) stamps
+    "order" before the kernel's launch and "main" after it."""
     n_k = rows.shape[-1]
     if n_k % BLOCK:
         raise ValueError(f"rows hold {n_k} columns, not a multiple of {BLOCK}")
@@ -270,8 +273,12 @@ def _phase1_core(
     offsets = plan.csr_offsets(cid_key, meta.num_cells)
     rows_s = rows[:, perm]
     rows_pad = torch.cat([rows_s, _pad_columns(window, rows.device)], dim=1)
+    if tap is not None:
+        tap.stamp("order")
     pos_k, vel_k, ncon_k, overflow = p2p_window_collide_cells(
         rows_pad, cid_s, offsets, meta, w=window, beta=beta)
+    if tap is not None:
+        tap.stamp("main")
     return WindowParts(pos_k, vel_k, ncon_k, rows_s, overflow, perm, cid_s,
                        offsets, meta)
 
@@ -317,15 +324,19 @@ def p2p_collide_window(
                              fallback_capacity=fallback_capacity)
 
 
-def _p2p_device_fallback(parts: WindowParts, beta: float):
+def _p2p_device_fallback(parts: WindowParts, beta: float, tap=None):
     """Exact redo for window-overflow particles, sized on the device: the
     overflow lanes compacted (cumsum and scatter) and one launch of the
     worklist entry point over them, each lane's nine full runs with no
     window.  Gives ``_p2p_chunked_fallback``'s bits.  Writes into the
     kernel's results in place and returns (pos_k, vel_k, ncon_k, n_over),
-    n_over an i32 device scalar.  Sentinel and pad lanes park in cell C,
-    have no runs and never overflow, so they are never listed."""
+    n_over an i32 device scalar, also the listed lanes' count, which goes
+    to ``tap.lanes`` (a runner's ``with_stats`` step).  Sentinel and pad
+    lanes park in cell C, have no runs and never overflow, so they are
+    never listed."""
     lanes, n_over = compact_lanes(parts.overflow)
+    if tap is not None:
+        tap.lanes = n_over
     p2p_collide_worklist(parts.rows_s, parts.cid_s, parts.offsets, parts.meta,
                          lanes, n_over, parts.pos_k, parts.vel_k, parts.ncon_k,
                          beta=beta)

@@ -1,11 +1,12 @@
-"""PyTorch port, the sorted runner's telemetry (``with_stats=True``): the
+"""PyTorch port, the episode runners' telemetry (``with_stats=True``): the
 stage stamps and counters each step writes into its ring row, the set-up
-laps, and that neither changes a state.  On the CPU the stamps are the
-host clock (``ops/cuda/telemetry_kernel.py``'s plain versions), so the
-layout and the counters are held here; the captured path and the
-kernels run on the card (``-m cuda``).  Small sizes: the sample scene
-with 20x dt (49 particles padded to 1024, first impacts within ~45
-steps)."""
+laps, and that neither changes a state; the sorted runner's and the p2p
+runner's.  On the CPU the stamps are the host clock
+(``ops/cuda/telemetry_kernel.py``'s plain versions), so the layout and
+the counters are held here; the captured path and the kernels run on the
+card (``-m cuda``).  Small sizes: the sample scene with 20x dt (49
+particles padded to 1024, first impacts within ~45 steps); a box of
+2,000 spheres (``_p2p_cloud``)."""
 
 import dataclasses
 import functools
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core import telemetry as ttel
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
+    ParticleState,
     active_mask,
     spawn_grid,
 )
@@ -259,3 +262,135 @@ def test_telemetry_kernels_match_their_plain_versions():
     assert (np.diff(got[:5, :6].ravel()) >= 0).all() and got[0, 0] > 0
     assert got[0, 6:].tolist() == [5, int(acc_c) + 11, 3]
     assert got[1:5, 6:].tolist() == [[5, 0, 3]] * 4 and (got[5:] == -1).all()
+
+
+# ------------------------------------------------- the p2p runner's ----
+
+P2P_BOX = ((0.0, 0.0, 0.0), (4.0, 4.0, 4.0))
+P2P_STAMPS = ["start", "order", "main", "rescue", "end"]
+
+
+def _p2p_cloud(device="cpu") -> ParticleState:
+    """2,000 spheres of radius 0.12 in a box of 4 (seed 13): cells of
+    0.24 hold several, and at a window of 64 columns lanes overflow into
+    the fallback every step."""
+    rng = np.random.default_rng(13)
+    n = 2000
+    f32 = np.float32
+    return ParticleState(
+        pos=torch.from_numpy(rng.uniform(0.6, 3.4, size=(3, n)).astype(f32)).to(device),
+        vel=torch.from_numpy((rng.normal(size=(3, n)) * 2).astype(f32)).to(device),
+        collisions=torch.zeros(n, dtype=torch.int32, device=device),
+        radius=torch.full((n,), 0.12, dtype=torch.float32, device=device),
+        restitution=torch.full((n,), 0.7, dtype=torch.float32, device=device))
+
+
+def _p2p_runner(device="cpu", window=64):
+    return tstep.make_p2p_episode_runner(
+        *P2P_BOX, SimConfig(particle_radius=0.12, dt=0.004), window=window,
+        device=device)
+
+
+def test_p2p_stats_leave_the_states_bit_for_bit(monkeypatch):
+    """The p2p runner with stats (across a drain of a 16-row ring) equals
+    the runner without, bit for bit, over two calls, with no host read;
+    each ring row holds the five stamps in order (no screen-space one), the
+    stages sum to each step's stamped span, the overflow list is the
+    ring's "n_over" counter and the fallback's listed lanes ("n_lanes")
+    are the overflow."""
+    monkeypatch.setattr(tstep, "StepRing", functools.partial(ttel.StepRing, cap=16))
+    state = _p2p_cloud()
+    on, off = _p2p_runner(), _p2p_runner()
+    a, ovf = on(state, 20, with_stats=True)
+    b = off(state, 20)
+    assert _equal(a, b) and int(a.collisions.sum()) > 0
+    a2, ovf2 = on(a, 12, with_stats=True)
+    assert _equal(a2, off(b, 12))
+    assert on.syncs.count == 0 and on.steps == 32
+    tel = on.telemetry
+    assert tel.calls == 2 and [r.call for r in tel.records] == [0, 1]
+    rec = tel.records[1]
+    assert list(rec.stages_ms) == P2P_STAMPS[1:]
+    assert all(len(x) == 12 for x in rec.stages_ms.values())
+    assert ovf == tel.records[0].counters["n_over"].tolist() and len(ovf) == 20
+    assert ovf2 == rec.counters["n_over"].tolist() and min(ovf + ovf2) > 0
+    for r in tel.records:
+        assert (r.counters["n_lanes"] == r.counters["n_over"]).all()
+        assert (r.counters["undecided"] == -1).all()
+    (ring,) = [r.ring.numpy()[:12] for r in on._rings.values()]
+    assert (ring[:, ttel.STAMPS.index("screenspace")] == -1).all()
+    stamps = ring[:, [ttel.STAMPS.index(s) for s in P2P_STAMPS]]
+    assert (stamps > 0).all() and (np.diff(stamps, axis=1) >= 0).all()
+    np.testing.assert_allclose(sum(rec.stages_ms.values()),
+                               (stamps[:, -1] - stamps[:, 0]) / 1e6, rtol=1e-12)
+    np.testing.assert_allclose(sum(rec.stages_ms.values())[:-1] + rec.gap_ms,
+                               rec.period_ms, rtol=1e-12)
+
+
+def test_p2p_calls_without_stats_stamp_nothing(monkeypatch):
+    """A p2p runner's call without stats takes no stamp and keeps no
+    record; one with stats takes five stamps a step and one record; its
+    first step is the set-up lap "capture"."""
+    taken = []
+    real = ttel.StepRing.stamp
+
+    def spy(self, name):
+        taken.append(name)
+        real(self, name)
+
+    monkeypatch.setattr(ttel.StepRing, "stamp", spy)
+    run = _p2p_runner()
+    s = run(_p2p_cloud(), 6)
+    assert taken == [] and len(run.telemetry.records) == 0
+    assert set(run.telemetry.setup_laps) == {"capture"}
+    run(s, 3, with_stats=True)
+    assert taken == ["start", "order", "main", "rescue"] * 3
+    assert len(run.telemetry.records) == 1 and run.telemetry.calls == 2
+
+
+def test_p2p_each_stats_step_is_one_host_span():
+    from torch.profiler import ProfilerActivity, profile
+
+    run = _p2p_runner()
+    s = run(_p2p_cloud(), 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s, _ = run(s, 4, with_stats=True)
+        run(s, 3)
+    assert len([e for e in prof.events() if e.name == ttel.STEP_SPAN]) == 4
+
+
+@pytest.mark.cuda
+def test_p2p_captured_stats_graph_on_card():
+    """On the card: the p2p runner with stats (its own captured graph)
+    equals the runner without and the same runner stepping eagerly, bit
+    for bit, with no host read; the stats graph launches the step's
+    kernels and, counted apart, five stamps; calls without stats launch no
+    telemetry kernel; the stamps rise along each row."""
+    dev = _card()
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        p2p_window_kernel as tpk,
+    )
+
+    state = _p2p_cloud(dev)
+    on, off = _p2p_runner(dev), _p2p_runner(dev)
+    tel0 = dict(ttk.LAUNCHES)
+    a, ovf = on(state, 20, with_stats=True)
+    assert on.telemetry_launches == {"stamp": 5, "count_undecided": 0}
+    assert ttk.LAUNCHES["stamp"] - tel0["stamp"] == 5 * 20
+    before, tel0 = dict(tpk.LAUNCHES), dict(ttk.LAUNCHES)
+    b = off(state, 20)
+    assert ttk.LAUNCHES == tel0 and off.telemetry_launches == {}
+    assert {k: tpk.LAUNCHES[k] - before[k] for k in before} == {
+        k: 20 * v for k, v in off.launches.items()}
+    assert off.launches == on.launches and sum(on.launches.values()) == 2
+    with tstep.uncaptured():
+        c, ovf_c = _p2p_runner(dev)(state, 20, with_stats=True)
+    assert _equal(a, b) and _equal(a, c) and ovf == ovf_c and min(ovf) > 0
+    assert on.syncs.count == 0 and off.syncs.count == 0
+    on(a, 5)  # a call without stats captures the plain graph beside
+    assert set(on._graphs) == {(2048, True), (2048, False)}
+    rec = on.telemetry.records[0]
+    assert list(rec.stages_ms) == P2P_STAMPS[1:]
+    assert all((x >= 0).all() for x in rec.stages_ms.values())
+    assert (rec.period_ms > 0).all()
+    assert (rec.counters["n_lanes"] == rec.counters["n_over"]).all()
