@@ -7,7 +7,7 @@ On a host with several cards phase 9 adds a run over NCCL across them.
 
 Phases (each raises on failure; nothing is caught and passed over):
   1. print the card (nvidia-smi name and power limit), the torch and CUDA
-     versions, and build the four CUDA sources of ops/cuda/csrc (ptxas
+     versions, and build the five CUDA sources of ops/cuda/csrc (ptxas
      usage by kernel; B1's worklist collide kernel's and B3's worklist
      kernel's occupancy and instructions per candidate from the SASS,
      ``sass_counts``, for B3 also those of a candidate that fails the
@@ -50,7 +50,8 @@ Phases (each raises on failure; nothing is caught and passed over):
      resort_every "auto"; launch counters reset just before), print the
      undecided share, host reads and overflow, and check it as phase 2
      does, with the undecided share at step 700 strictly between 0 and
-     1, and host reads per step beside the spatial runner's (steps
+     1, the screen-space kernel launched once a step, and host reads per
+     step beside the spatial runner's (steps
      600-700 with stats: six stamps and one undecided count a step, and
      the ring's undecided counter of step 600 equal to the stage's
      undecided real lanes recounted on its input); run the
@@ -149,7 +150,10 @@ Phases (each raises on failure; nothing is caught and passed over):
      overflow per step, its host reads and launches per step over steps
      1400-2001, and on its state at step 1500 B1 (main, rescue phase 1,
      the 8,192-lane chunk), the worklist entry point and B2 against their
-     plain versions, and one step of the runner (replayed) against one of
+     plain versions, the screen-space kernel on "Main Camera" against
+     its plain version (``screenspace_case``: both entry points, every
+     lane bit for bit, timed beside its byte bound), and one step of the
+     runner (replayed) against one of
      the per-step step with the rescue looped on the host
      (``_chunked_rescue``, a test and smoke helper) in place of its own,
      every lane; then ``rescue_route``: the spatial episode in the
@@ -190,7 +194,9 @@ Phases (each raises on failure; nothing is caught and passed over):
      8,192-lane chunk's numbers;
      the explicit-plan entry point of the p2p kernel, which no main path
      launches, and its worklist entry point are listed under that
-     kernel's entry; the telemetry kernels, "path": "telemetry", last,
+     kernel's entry; the screen-space kernel, "path": "hybrid", with its
+     launches on the hybrid path (one a step), the main path (none) and
+     the k = 7 protocol; the telemetry kernels, "path": "telemetry", last,
      with their launches on the main, hybrid and k = 7 paths).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
@@ -529,6 +535,86 @@ def telemetry_case(torch, card: str, tag: str, und, x, n_over, n_lanes) -> dict:
     return {"count": {"max_abs_err": 0, **count}, "stamp": {"max_abs_err": 0, **stamp}}
 
 
+def screenspace_case(torch, card: str, tag: str, state, tex, gravity, dt: float) -> dict:
+    """The screen-space kernel against its plain version (run on the
+    card) on ``state``: both entry points, the hybrid and the
+    screen-space-only pass out of place and the runner's pass in place
+    on a copy of its [8, N] rows, every lane bit for bit (pos, vel,
+    count, mask; raises on any difference), the in-place pass leaving
+    every lane that does not collide unwritten; then the in-place pass
+    timed (the runner's) and the out-of-place one, with the plain
+    version's time and the byte bound.  Returns its kernel-table
+    numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    n = state.pos.shape[-1]
+    differ = {}
+    for hybrid in (True, False):
+        want, want_und = ss.screen_space_collide_plain(state, tex, gravity, dt,
+                                                       hybrid=hybrid)
+        got, und = ss.screen_space_collide(state, tex, gravity, dt, hybrid=hybrid)
+        differ["hybrid" if hybrid else "screen-space only"] = int(
+            ((bits(got.pos) != bits(want.pos)).any(0) | (bits(got.vel) != bits(want.vel)).any(0)
+             | (got.collisions != want.collisions) | (und != want_und)).sum())
+        if hybrid:
+            ref, ref_und = want, want_und
+    rows8 = torch.cat([state.pos, state.vel, state.radius[None], state.restitution[None]])
+    rows0, coll = rows8.clone(), state.collisions.clone()
+    und = torch.ones((n,), dtype=torch.bool, device=rows8.device)
+    ss.screen_space_collide_rows(rows8, coll, und, tex, gravity, dt)
+    hit = coll != state.collisions
+    differ["in place"] = int(
+        ((bits(rows8[0:3]) != bits(ref.pos)).any(0) | (bits(rows8[3:6]) != bits(ref.vel)).any(0)
+         | (coll != ref.collisions) | (und != ref_und)).sum())
+    untouched = bool(torch.equal(bits(rows8[:, ~hit]), bits(rows0[:, ~hit]))
+                     and torch.equal(bits(rows8[6:8]), bits(rows0[6:8])))
+    hits = int(hit.sum())
+    # the lanes that gather a texel: visible (on screen, in front) and moving
+    pos = state.pos
+    view_pos = ss._transform(tex.view, pos, 1.0)
+    clip = ss._transform(tex.proj, view_pos[:3], view_pos[3])
+    sx, sy = clip[0] / clip[3] * 0.5 + 0.5, clip[1] / clip[3] * 0.5 + 0.5
+    in_front = (tex.cam_fwd[:, None] * (pos - tex.cam_pos[:, None])).sum(0) > 0
+    gather = int(((sx >= 0) & (sx <= 1) & (sy >= 0) & (sy <= 1) & in_front
+                  & ((state.vel != 0).any(0))).sum())
+    print(f"[{card}] screen-space kernel ({tag}, {n} lanes): lanes that differ in any "
+          f"bit from the plain version: {differ}; the in-place pass leaves the "
+          f"{n - hits} lanes that do not collide unwritten: {untouched}; "
+          f"{hits} lanes collide "
+          f"({int((ref.collisions != state.collisions).sum())} by the plain version), "
+          f"{gather} gather a texel, {int(ref_und.sum())} undecided")
+    if any(differ.values()) or not untouched:
+        raise RuntimeError(f"screen-space kernel ({tag}) disagrees with its plain version")
+    scratch = rows0.clone()
+    coll_s = state.collisions.clone()
+    t = timed(torch, lambda: ss.screen_space_collide_rows(scratch, coll_s, und, tex,
+                                                          gravity, dt),
+              lambda: ss.screen_space_collide_plain(state, tex, gravity, dt, hybrid=True))
+
+    def oop():
+        ss.screen_space_collide(state, tex, gravity, dt, hybrid=True)
+
+    out_of_place = {"ms": median_ms(torch, oop), "device_ms": device_ms(torch, oop)[0]}
+    # bound: the rows and the count read, the mask written on every lane;
+    # pos, vel and the count written where a lane collides; a 16 B texel
+    # where one is gathered (in place); every output written (out of place)
+    n_bytes = n * (32 + 4 + 1) + hits * (24 + 4) + gather * 16
+    n_bytes_out = n * (32 + 4 + 24 + 4 + 1) + gather * 16
+    bound = n_bytes / H100_BYTES_PER_S * 1e3
+    bound_out = n_bytes_out / H100_BYTES_PER_S * 1e3
+    print(f"[{card}] screen-space kernel ({tag}), in place: {t['ms']:.4f} ms by events "
+          f"around the call, {ms_text(t['device_ms'])} on the device "
+          f"({by_kernel(t.pop('by_kernel'))}); plain {t['plain_ms']:.4f} ms; bound "
+          f"{bound:.4f} ms (bytes: {n_bytes} B); out of place "
+          f"{out_of_place['ms']:.4f} ms by events, {ms_text(out_of_place['device_ms'])} "
+          f"on the device, bound {bound_out:.4f} ms (bytes: {n_bytes_out} B)")
+    return {"max_abs_err": 0, **t, "bound_ms": bound, "bound_by": "bytes",
+            "out_of_place": {**out_of_place, "bound_ms": bound_out}}
+
+
 def lane_diff(torch, a, b) -> int:
     """Lanes (last axis) on which two tensors differ anywhere."""
     ne = a != b
@@ -834,6 +920,9 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        screenspace_kernel as ssk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         telemetry_kernel as tk,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -859,7 +948,8 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     gravity = runner.sp.gravity
 
     def undecided_share(state) -> float:
-        _, und = ss.screen_space_collide(state, tex, gravity, cfg.dt, hybrid=True)
+        # the plain version: the kernel's launches count the runner's alone
+        _, und = ss.screen_space_collide_plain(state, tex, gravity, cfg.dt, hybrid=True)
         return float(und[active_mask(state)].float().mean())
 
     def check(tag, s, want_hits):
@@ -879,6 +969,7 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     # ---- the hybrid runner, 700 steps, timed as the spatial path ----
     wk.reset_launches()
     tk.reset_launches()
+    ssk.reset_launches()
     syncs0 = runner.syncs.count
     share, ms = {}, {}
     h = runner(state0, 1)  # step 0
@@ -902,6 +993,7 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
     ms[(600, 700)] = (t_a + time.perf_counter() - t0) * 1000.0 / (N_STEPS - 600)
     launches = dict(wk.LAUNCHES)
     tel_launches = dict(tk.LAUNCHES)
+    ss_launches = ssk.LAUNCHES["screen_space_collide"]
     # the ring's undecided counter of step 600 (the first step with stats)
     # against the stage's undecided real lanes recounted on its input
     _, und600 = ss.screen_space_collide(h600, tex, gravity, cfg.dt, hybrid=True)
@@ -919,13 +1011,17 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
           + f"; host reads {syncs_per_step:.4f}/step (spatial runner "
           f"{spatial_reads:.4f}); overflow steps 600-700 min "
           f"{ovf[0]} median {ovf[len(ovf) // 2]} max {ovf[-1]}; collisions {coll}; "
-          f"launches {launches}; steps 600-700 with stats (the stamped graphs), "
+          f"launches {launches}, the screen-space kernel {ss_launches}; steps 600-700 "
+          f"with stats (the stamped graphs), "
           f"telemetry launches {tel_launches}; the ring's undecided real lanes at "
           f"step 600 {und_got}, the stage's recounted {und_want}")
     if not 0.0 < share[N_STEPS] < 1.0:
         raise RuntimeError(f"undecided share {share[N_STEPS]} at step {N_STEPS} "
                            "is not strictly between 0 and 1")
     check_runner_launches("hybrid path", launches, N_STEPS)
+    if ss_launches != N_STEPS:
+        raise RuntimeError(f"hybrid path: the screen-space kernel launched {ss_launches} "
+                           f"times in {N_STEPS} steps, want one a step")
     check_telemetry_launches("hybrid path", tel_launches, N_STEPS - 600, True)
     if und_got != und_want:
         raise RuntimeError("the hybrid's undecided counter disagrees with the stage")
@@ -956,6 +1052,7 @@ def drive_hybrid(torch, card: str, scene, state0, spatial_coll: int, sp,
           f"{int((st.collisions - h650.collisions).sum())} particles in this step")
     numbers = {"b2": b2_case(torch, card, f"hybrid, step {SNAP_STEP}", b2_args), "b1": {},
                "launches": launches, "tel_launches": tel_launches,
+               "ss_launches": ss_launches,
                "worklist": worklist_case(torch, card, sp, f"hybrid, step {SNAP_STEP}",
                                          wl_args)}
     for tag, (args, w) in cases.items():
@@ -2497,6 +2594,9 @@ def drive_protocol(torch, card: str) -> dict:
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops import screenspace as ss
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        screenspace_kernel as ssk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         telemetry_kernel as tk,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -2525,6 +2625,7 @@ def drive_protocol(torch, card: str) -> dict:
     H.make_sorted_episode_runner = tapped_runner
     wk.reset_launches()
     tk.reset_launches()
+    ssk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -2536,6 +2637,7 @@ def drive_protocol(torch, card: str) -> dict:
     wall_a = time.perf_counter() - t0
     launches_a = dict(wk.LAUNCHES)
     tel_launches_a = dict(tk.LAUNCHES)
+    ss_launches_a = ssk.LAUNCHES["screen_space_collide"]
     cam0 = scene.cameras[0].name
     if [(r["method"], r["camera"]) for r in rows] != [(m, cam0) for m in methods]:
         raise RuntimeError(f"protocol k={PROTOCOL_K}: rows {rows}")
@@ -2570,7 +2672,9 @@ def drive_protocol(torch, card: str) -> dict:
             k: v * n_b2 for k, v in STEP_LAUNCHES.items()}:
         raise RuntimeError(f"protocol k={PROTOCOL_K} launches {launches_a}: a kernel "
                            "of the path never launched, or not once a step")
-    print(f"[{card}] protocol k={PROTOCOL_K}: {wall_a:.1f} s; launches {launches_a}; "
+    print(f"[{card}] protocol k={PROTOCOL_K}: {wall_a:.1f} s; launches {launches_a}, "
+          f"the screen-space kernel {ss_launches_a} (the screen-space and the hybrid "
+          f"episodes, one a step); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---- the spatial episode's own states, through the tap ----
@@ -2652,6 +2756,10 @@ def drive_protocol(torch, card: str) -> dict:
             torch, card, sp, f"protocol k={PROTOCOL_K} {tag}, step {PROTOCOL_SNAP_STEP}",
             args, w)
     del b2_args, cases, wl_args
+    numbers["screenspace"] = screenspace_case(
+        torch, card, f"{cam0!r}, {at}", snap,
+        ss.bake_camera(scene.triangles, scene.cameras[0], scene.corner_normals),
+        sp.gravity, cfg.dt)
 
     # ---- one step from the state at step 1500: the runner's captured step
     # (its rescue sized on the device) against the per-step step with the
@@ -2732,7 +2840,7 @@ def drive_protocol(torch, card: str) -> dict:
                 f"{PROTOCOL_STEPS}", und, s.pos[0], *tel_scalars)
     print(f"[{card}] phase 10 (protocol ladder): {time.perf_counter() - t_phase:.1f} s")
     return {"launches_k7": launches_a, "launches_k0": launches_b,
-            "tel_launches_k7": tel_launches_a, **numbers}
+            "tel_launches_k7": tel_launches_a, "ss_launches_k7": ss_launches_a, **numbers}
 
 
 # phase 11: the headline benchmark (bench/headline.py), at its defaults
@@ -3038,6 +3146,9 @@ def main() -> int:
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        screenspace_kernel as ssk,
+    )
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
         telemetry_kernel as tk,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
@@ -3093,6 +3204,7 @@ def main() -> int:
 
     wk.reset_launches()
     tk.reset_launches()
+    ssk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ovf_all, reads = [], []
     s = state0
@@ -3147,6 +3259,8 @@ def main() -> int:
     if total_coll <= 0:
         raise RuntimeError("no collisions in 700 steps")
     check_runner_launches("main path", launches, N_STEPS)
+    if ssk.LAUNCHES["screen_space_collide"]:
+        raise RuntimeError("main path: the spatial runner launched the screen-space kernel")
     check_telemetry_launches("main path", tel_launches, N_STEPS, False)
     if not max(ovf) > 0:
         raise RuntimeError("no lane overflowed in steps 600-700: the rescue never ran")
@@ -3349,6 +3463,16 @@ def main() -> int:
         {**wl_entry(":protocol", prot["worklist"], k7["window_collide_worklist"]),
          "path": "protocol k=7",
          "launches_k0_cameras": prot["launches_k0"]["window_collide_worklist"]},
+        # the screen-space stage (no TPU kernel behind it: the JAX package
+        # runs it in XLA), held against its plain version on "Main
+        # Camera" over the k = 7 spatial state at step 1500; its launches
+        # on the hybrid path (one a step; none on the main path) and in
+        # the protocol's k = 7 screen-space and hybrid episodes
+        {"name": "screen_space_collide", "route": "cuda",
+         "source": PORT_CSRC + "screenspace_kernel.cu", "replaces": None,
+         "launches": hyb["ss_launches"], "launches_main": 0,
+         "launches_protocol_k7": prot["ss_launches_k7"], **prot["screenspace"],
+         "library_ms": None, "path": "hybrid"},
         {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
         *b3[1:],
         tel_entry("psys_stamp_kernel", "stamp", prot["telemetry"]["stamp"]),

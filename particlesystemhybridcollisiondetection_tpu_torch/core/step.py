@@ -106,12 +106,16 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_dense import (
 from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
     bake_camera,
     screen_space_collide,
+    screen_space_collide_rows,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
     StepRing,
     Telemetry,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as tk
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.screenspace_kernel import (
+    LAUNCHES as SS_LAUNCHES,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_parallel as dp
 from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import (
     Stopwatch,
@@ -1088,15 +1092,16 @@ def _capture(body, *counters: dict, pool=None, error_mode: str = "global"):
     return g, out, made
 
 
-def _replay(graph, launches: dict, counters: dict) -> None:
+def _replay(graph, launches: dict, *counters: dict) -> None:
     """Replay a captured step and count its kernel launches."""
     graph.replay()
-    _tally(launches, counters)
+    _tally(launches, *counters)
 
 
-def _tally(launches: dict, counters: dict) -> None:
+def _tally(launches: dict, *counters: dict) -> None:
+    """Add each wrapper's launches to the counter that holds its name."""
     for k, v in launches.items():
-        counters[k] += v
+        next(c for c in counters if k in c)[k] += v
 
 
 class _Carry(NamedTuple):
@@ -1123,7 +1128,9 @@ class SortedEpisodeRunner:
     one with the re-sort and one without, replayed once a step: the
     first step for a particle count runs eagerly, the next captures both
     (they share one memory pool).  ``launches`` holds each graph's
-    kernel launches, which every replay adds to ``LAUNCHES``.  A fixed
+    kernel launches, which every replay adds to ``LAUNCHES`` and, the
+    screen-space stage's (one a hybrid step), to
+    ``screenspace_kernel.LAUNCHES``.  A fixed
     ``resort_every`` chooses the graph on the host (no read); "auto"
     reads the flag that the step computes on the device (the JAX
     package's ``_trigger_update``), one read a step.  Eager steps run the
@@ -1195,16 +1202,6 @@ class SortedEpisodeRunner:
             self.syncs, active_s=active_s, tap=tap,
         )
 
-    def _ss_stage(self, rows8, aux):
-        """Screen-space stage on the carried rows (hybrid): returns
-        (rows8', aux', undecided bool[N]) in the same order."""
-        st = ParticleState(pos=rows8[0:3], vel=rows8[3:6], collisions=aux[0],
-                           radius=rows8[6], restitution=rows8[7])
-        st, undecided = screen_space_collide(
-            st, self.tex, self.sp.gravity, self.sp.cfg.dt, hybrid=True)
-        rows8 = torch.cat([st.pos, st.vel, rows8[6:8]], dim=0)
-        return rows8, torch.stack([st.collisions, aux[1]]), undecided
-
     def _carry_for(self, n: int, dev) -> _Carry:
         b = self._carry.get(n)
         if b is None:
@@ -1224,19 +1221,17 @@ class SortedEpisodeRunner:
         re-sort first, else keep the current (drifted) order --
         sortedness is a locality hint, the rescue redoes whatever no
         longer fits its window.  In hybrid mode the screen-space stage
-        runs first and its undecided mask follows the rows through the
-        sort.  "auto" then sets ``b.resort`` on the device from this
-        step's overflow, summed over the mesh if there is one (the step's
-        only collective; every rank reaches it).  With ``ring`` the step
+        runs first, in place on the carried rows, and its undecided mask
+        follows the rows through the sort.  "auto" then sets ``b.resort``
+        on the device from this step's overflow, summed over the mesh if
+        there is one (the step's only collective; every rank reaches it).  With ``ring`` the step
         stamps its stages and writes its counters (class docstring)."""
         if ring is not None:
             ring.stamp("start")
         rows8, aux = b.rows8, b.aux
         if self.tex is not None:
-            r8, ax, und = self._ss_stage(rows8, aux)
-            rows8.copy_(r8)
-            aux.copy_(ax)
-            b.act.copy_(und)
+            screen_space_collide_rows(rows8, aux[0], b.act, self.tex, self.sp.gravity,
+                                      self.sp.cfg.dt)
             if ring is not None:
                 ring.stamp("screenspace")
         dt = self.sp.cfg.dt
@@ -1274,7 +1269,8 @@ class SortedEpisodeRunner:
         """Capture the step with and without the re-sort (with ``ring``,
         the stamped step), in the memory pool of N's graphs.  Their kernel
         launches, which must be the same as every other pair's, go to
-        ``self.launches`` and back out of ``LAUNCHES``, the stamped pair's
+        ``self.launches`` and back out of ``LAUNCHES`` and the
+        screen-space kernel's ``LAUNCHES``, the stamped pair's
         telemetry launches to ``self.telemetry_launches`` and back out of
         ``telemetry_kernel.LAUNCHES``: a capture launches nothing."""
         graphs, made, stamped = {}, [self.launches] if self.launches else [], []
@@ -1282,12 +1278,12 @@ class SortedEpisodeRunner:
         # captures: only this thread's calls may break the capture
         mode = "global" if self.mesh is None else "thread_local"
         for do_sort in (True, False):
-            g, _, (launches, telemetry) = _capture(
-                lambda: self._step(b, do_sort, ring), LAUNCHES, tk.LAUNCHES,
-                pool=self._pools.get(n), error_mode=mode)
+            g, _, (launches, ss_launches, telemetry) = _capture(
+                lambda: self._step(b, do_sort, ring), LAUNCHES, SS_LAUNCHES,
+                tk.LAUNCHES, pool=self._pools.get(n), error_mode=mode)
             self._pools[n] = g.pool()
             graphs[do_sort] = g
-            made.append(launches)
+            made.append({**launches, **ss_launches})
             stamped.append(telemetry)
         if any(m != made[0] for m in made) or stamped[0] != stamped[1]:
             raise RuntimeError(f"the captured steps launch different kernels: "
@@ -1323,7 +1319,7 @@ class SortedEpisodeRunner:
             fence(b.rows8)
             setup.lap("capture")
         if graphs is not None:
-            _replay(graphs[do_sort], self.launches, LAUNCHES)
+            _replay(graphs[do_sort], self.launches, LAUNCHES, SS_LAUNCHES)
             if ring is not None:
                 _tally(self.telemetry_launches, tk.LAUNCHES)
         return do_sort

@@ -25,7 +25,8 @@ _BUILD_DIR = os.path.join(
         os.path.abspath(__file__))))),
     "build", "torch_kernels",
 )
-SOURCES = ("cells_kernel", "p2p_window_kernel", "telemetry_kernel", "window_kernel")
+SOURCES = ("cells_kernel", "p2p_window_kernel", "screenspace_kernel",
+           "telemetry_kernel", "window_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",

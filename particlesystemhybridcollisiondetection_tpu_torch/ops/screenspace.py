@@ -10,10 +10,15 @@ particles off-screen, behind the camera, or occluded (``eyeDist >
 depth``) -- as a boolean mask that gates the exact second stage; no
 atomics, no host read.
 
-Plain PyTorch on ``[3, N]`` planar tensors (the JAX package runs this
-stage in XLA, not in a Pallas kernel).  The projection is written out
-component by component, so every lane rounds the same way whatever its
-position in the particle axis.
+``screen_space_collide`` runs its plain PyTorch version
+(``screen_space_collide_plain``, on ``[3, N]`` planar tensors) for tensors
+on the CPU, and for CUDA tensors launches the hand-written kernel
+(``ops/cuda/screenspace_kernel.py``; the JAX package runs this stage in
+XLA, not in a Pallas kernel) or raises.  ``screen_space_collide_rows`` is
+the hybrid's pass in place on a runner's carried rows.  The projection is
+written out component by component, so every lane rounds the same way
+whatever its position in the particle axis, and the kernel (built without
+fused multiply-add) rounds as the plain version does.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     resolve_device,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.geometry.camera import Camera
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+    screenspace_kernel as ssk,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.ops.raster import (
     rasterize_depth_normal,
 )
@@ -52,6 +60,9 @@ class CameraTextures(NamedTuple):
     # depth + normal as ONE planar [4, H*W] table (row 0 depth, rows 1-3
     # normal xyz): one column gather per particle reads all four
     planar: torch.Tensor  # f32[4, H*W]
+    # the same table interleaved, a texel's four values side by side: the
+    # kernel's one 16 B load a lane (the plain version reads ``planar``)
+    texels: torch.Tensor  # f32[H*W, 4]
 
     @property
     def screen_size(self) -> tuple[int, int]:
@@ -166,6 +177,7 @@ def bake_camera(
         depth=t(depth),
         normal=t(normal),
         planar=t(planar),
+        texels=t(planar.T),
     )
     _BAKE_CACHE[key] = tex
     return tex
@@ -199,8 +211,49 @@ def screen_space_collide(
 ) -> tuple[ParticleState, torch.Tensor]:
     """One collision pass.  Returns (new_state, undecided bool[N]).
 
-    ``undecided`` is all-False unless ``hybrid``.
+    ``undecided`` is all-False unless ``hybrid``.  CPU tensors take the
+    plain version; CUDA tensors one launch of the kernel.
     """
+    if state.pos.device.type == "cpu":
+        return screen_space_collide_plain(state, tex, gravity, dt, hybrid=hybrid)
+    pos, vel, coll, undecided = ssk.screen_space_collide(
+        state.pos, state.vel, state.collisions, state.radius, state.restitution, tex,
+        gravity, dt, hybrid=hybrid)
+    if undecided is None:
+        undecided = torch.zeros_like(coll, dtype=torch.bool)
+    return state._replace(pos=pos, vel=vel, collisions=coll), undecided
+
+
+def screen_space_collide_rows(rows8: torch.Tensor, collisions: torch.Tensor,
+                              undecided: torch.Tensor, tex: CameraTextures,
+                              gravity: torch.Tensor, dt: float) -> None:
+    """The hybrid's pass in place on a runner's carried rows: f32[8, N]
+    ``rows8`` (pos 0-2, vel 3-5, radius 6, restitution 7) and i32[N]
+    ``collisions`` take the pass's result, bool[N] ``undecided`` its
+    mask.  On the CPU through the plain version; on CUDA one launch that
+    writes pos, vel and the count only where a lane collides."""
+    if rows8.device.type != "cpu":
+        return ssk.screen_space_collide_rows(rows8, collisions, undecided, tex,
+                                             gravity, dt)
+    st, und = screen_space_collide_plain(
+        ParticleState(pos=rows8[0:3], vel=rows8[3:6], collisions=collisions,
+                      radius=rows8[6], restitution=rows8[7]),
+        tex, gravity, dt, hybrid=True)
+    rows8[0:3].copy_(st.pos)
+    rows8[3:6].copy_(st.vel)
+    collisions.copy_(st.collisions)
+    undecided.copy_(und)
+
+
+def screen_space_collide_plain(
+    state: ParticleState,
+    tex: CameraTextures,
+    gravity: torch.Tensor,
+    dt: float,
+    *,
+    hybrid: bool = False,
+) -> tuple[ParticleState, torch.Tensor]:
+    """Plain version of ``screen_space_collide``: the kernel's oracle."""
     pos, velo = state.pos, state.vel
     h_px, w_px = tex.screen_size
 

@@ -24,6 +24,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     spawn_grid,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.geometry.scenes import sample_scene
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import screenspace_kernel as tssk
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as ttk
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import window_kernel as twk
 from particlesystemhybridcollisiondetection_tpu_torch.ops.screenspace import (
@@ -194,26 +195,31 @@ def _card():
 def test_captured_stats_graphs_on_card(fast, method):
     """On the card: the runner with stats (its own captured pair) equals
     the runner without, and the same runner stepping eagerly, bit for
-    bit; without stats the replayed graphs launch what a step launches,
-    the stats pair the same wrappers and, counted apart, a stamp a stage
-    (and the hybrid's count); the stamps rise along each row."""
+    bit; without stats the replayed graphs launch what a step launches
+    (and the hybrid's screen-space kernel once a step, none in the
+    spatial method), the stats pair the same wrappers and, counted apart,
+    a stamp a stage (and the hybrid's count); the stamps rise along each
+    row."""
     dev = _card()
     state = spawn_grid(fast.config, 1, device=dev)
     on = _runner(fast, method, device=dev, cells_lookup="kernel")
     off = _runner(fast, method, device=dev, cells_lookup="kernel")
     hybrid = method == "hybrid"
     stamped = {"stamp": 5 + hybrid, "count_undecided": int(hybrid)}
+    step_launches = {**STEP_LAUNCHES, "screen_space_collide": int(hybrid)}
     tel0 = dict(ttk.LAUNCHES)
     a, ovf = on(state, STEPS, with_stats=True)
     assert on.telemetry_launches == stamped
     assert {k: ttk.LAUNCHES[k] - tel0[k] for k in tel0} == {
         k: STEPS * v for k, v in stamped.items()}
     before, tel0 = dict(twk.LAUNCHES), dict(ttk.LAUNCHES)
+    ss0 = tssk.LAUNCHES["screen_space_collide"]
     b = off(state, STEPS)
     assert {k: twk.LAUNCHES[k] - before[k] for k in before} == {
         k: STEPS * v for k, v in STEP_LAUNCHES.items()}
+    assert tssk.LAUNCHES["screen_space_collide"] - ss0 == STEPS * hybrid
     assert ttk.LAUNCHES == tel0 and off.telemetry_launches == {}
-    assert off.launches == STEP_LAUNCHES == on.launches
+    assert off.launches == step_launches == on.launches
     assert set(off._graphs) == {(state.pos.shape[-1], False)}
     assert set(on._graphs) == {(state.pos.shape[-1], True)}
     with tstep.uncaptured():
@@ -221,7 +227,7 @@ def test_captured_stats_graphs_on_card(fast, method):
             state, STEPS, with_stats=True)
     assert _equal(a, b) and _equal(a, c) and ovf == ovf_c
     on(a, 5)  # a call without stats captures the plain pair beside
-    assert on.launches == STEP_LAUNCHES and len(on._graphs) == 2
+    assert on.launches == step_launches and len(on._graphs) == 2
     rec = on.telemetry.records[0]
     assert all((x >= 0).all() for x in rec.stages_ms.values())
     assert (rec.period_ms > 0).all()
