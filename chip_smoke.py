@@ -1095,6 +1095,7 @@ def drive_p2p(torch, card: str) -> list:
     occupancy and SASS counts in the latter)."""
     from particlesystemhybridcollisiondetection_tpu_torch.bench.configs import _box_state
     from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+    from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as GR
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
     from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan
@@ -1200,7 +1201,7 @@ def drive_p2p(torch, card: str) -> list:
     contacts = check("step path", s)
     eager_step = make_step()
     pk.reset_launches()
-    with S.uncaptured():
+    with GR.uncaptured():
         e, _, e_ovf, e_seg = drive_step(eager_step)
     expect_launches("step path, uncaptured", P2P_STEPS, count=False)
     step_differ = differ(s, e)
@@ -1232,7 +1233,7 @@ def drive_p2p(torch, card: str) -> list:
             pk.reset_launches()
             fence(state0.pos)
             t0 = time.perf_counter()
-            with contextlib.nullcontext() if captured else S.uncaptured():
+            with contextlib.nullcontext() if captured else GR.uncaptured():
                 r, r_ovf = run(state0, P2P_RUNNER_STEPS, with_stats=True)
             fence(r.pos)
             ms = (time.perf_counter() - t0) * 1000.0 / P2P_RUNNER_STEPS
@@ -2420,6 +2421,7 @@ def rescue_inputs(runner, spawn, step: int) -> tuple:
     replayed, that one up to the step stepped eagerly (``uncaptured``:
     the same bits), each rescue's arguments copied on the way in.
     Returns (kernel_out, sorted_state, overflow, key_s, ovf_count)."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as GR
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
 
     before = (step - 1) // RESCUE_CALL_STEPS * RESCUE_CALL_STEPS
@@ -2439,7 +2441,7 @@ def rescue_inputs(runner, spawn, step: int) -> tuple:
 
     S._device_rescue = keep
     try:
-        with S.uncaptured():
+        with GR.uncaptured():
             runner(state, step - before)
     finally:
         S._device_rescue = device_rescue
@@ -2463,10 +2465,8 @@ def rescue_route(torch, card: str, runner, spawn) -> dict:
     timed (CUDA events around one call made eagerly and around one
     replay, the median of REPS each, the main launch's output copied
     back in before each call, outside the events).  Returns the numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as GR
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
-    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
-        window_kernel as wk,
-    )
 
     sp = runner.sp
     if S._phase3_possible(sp) or PROTOCOL_STEPS % RESCUE_CALL_STEPS:
@@ -2519,7 +2519,7 @@ def rescue_route(torch, card: str, runner, spawn) -> dict:
                                  syncs=S.HostSyncs())
         call()  # warm: allocations
         out = tuple(x.clone() for x in bufs)
-        graph, _, _ = S._capture(call, wk.LAUNCHES)
+        graph, _, _ = GR._capture(call)
         reset()
         graph.replay()
         torch.cuda.synchronize()
@@ -3137,6 +3137,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 2
 
+    from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as GR
     from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
     from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
         active_mask, spawn_grid,
@@ -3270,7 +3271,7 @@ def main() -> int:
     eager = S.SortedEpisodeRunner(sp, "auto", runner.resort_threshold)
     e, ovf_e = state0, []
     t0 = time.perf_counter()
-    with S.uncaptured():
+    with GR.uncaptured():
         for k in PHASE2_CALLS:
             e, ovf_k = eager(e, k, with_stats=True)
             ovf_e += ovf_k

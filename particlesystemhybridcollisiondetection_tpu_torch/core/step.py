@@ -42,13 +42,12 @@ the rescue looped on the host, is kept as the reference the tests and
 the smoke hold it to.  The gravity box's "kernel" step and its runner
 read nothing: their window-overflow fallback is sized on the device
 (``ops/p2p_sorted.py::_p2p_device_fallback``), and on CUDA each replays
-its step as one captured CUDA graph.
+its step as one captured CUDA graph.  Both episode runners are built on
+the graphed-runner core, ``core/graphed.py::GraphedRunner``.
 """
 
 from __future__ import annotations
 
-import contextlib
-import gc
 import os
 import warnings
 from typing import NamedTuple, Optional
@@ -61,7 +60,14 @@ from particlesystemhybridcollisiondetection_tpu_torch.config import (
     Method,
     SimConfig,
 )
+from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as gcore
 from particlesystemhybridcollisiondetection_tpu_torch.core import vec
+from particlesystemhybridcollisiondetection_tpu_torch.core.graphed import (
+    GraphedRunner,
+    HostSyncs,
+    _capture,
+    _replay,
+)
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
     active_mask,
@@ -72,13 +78,9 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops import narrow_phase as
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p as p2p_ops
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_sorted as p2ps
 from particlesystemhybridcollisiondetection_tpu_torch.ops import pgrid as pg
-from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.p2p_window_kernel import (
-    LAUNCHES as P2P_LAUNCHES,
-)
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     BLOCK,
     LANE,
-    LAUNCHES,
     SUB,
     _CODE_TABLE_MAX,
     build_code_table,
@@ -112,33 +114,11 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
     StepRing,
     Telemetry,
 )
-from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as tk
-from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.screenspace_kernel import (
-    LAUNCHES as SS_LAUNCHES,
-)
 from particlesystemhybridcollisiondetection_tpu_torch.parallel import data_parallel as dp
 from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import (
     Stopwatch,
     fence,
 )
-
-
-class HostSyncs:
-    """Counts the device scalars read back to the host to decide a branch
-    (each read waits for the device): the host's form of the JAX
-    package's on-device branches.  Those that remain are the runner's
-    "auto" re-sort flag (with a mesh, the flag of the summed overflow),
-    the packed rescue phase where a scene needs it, the per-step sorted
-    step's ``with_stats`` overflow and the p2p "sorted" variant's loop
-    bounds (module docstring).  A runner's ``with_stats`` list, read once
-    after a call's last step, is the caller's read and not counted."""
-
-    def __init__(self):
-        self.count = 0
-
-    def read(self, t: torch.Tensor) -> int:
-        self.count += 1
-        return int(t.item())
 
 
 # candidate-lane elements the oracle paths and the packed path evaluate
@@ -1051,59 +1031,6 @@ def _sorted_step(sp: _Sorted, tex, with_stats: bool, mesh=None):
     return step
 
 
-# step capture on CUDA; off only inside ``uncaptured()``
-_CAPTURE = True
-
-
-@contextlib.contextmanager
-def uncaptured():
-    """Test and smoke helper: inside it, the sorted and p2p runners and
-    the p2p "kernel" step step eagerly on CUDA (no graph is captured or
-    replayed), running the code a captured step holds, so the two can be
-    held against each other."""
-    global _CAPTURE
-    was, _CAPTURE = _CAPTURE, False
-    try:
-        yield
-    finally:
-        _CAPTURE = was
-
-
-def _capture(body, *counters: dict, pool=None, error_mode: str = "global"):
-    """Capture ``body()`` in a new CUDA graph (memory from ``pool`` when
-    given).  Returns (graph, what ``body`` returned, [{counter: launches}
-    for each of ``counters``]): a capture launches nothing, so the
-    launches that the wrappers counted go back out of ``counters``, and
-    ``_replay`` adds them per replay.  Python's cycle collector is off
-    during the capture: a graph that it freed then (one held by dead
-    objects) would invalidate the capture."""
-    before = [dict(c) for c in counters]
-    g = torch.cuda.CUDAGraph()
-    gc.disable()
-    try:
-        with torch.cuda.graph(g, pool=pool, capture_error_mode=error_mode):
-            out = body()
-    finally:
-        gc.enable()
-    made = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
-    for c, m in zip(counters, made):
-        for k, v in m.items():
-            c[k] -= v
-    return g, out, made
-
-
-def _replay(graph, launches: dict, *counters: dict) -> None:
-    """Replay a captured step and count its kernel launches."""
-    graph.replay()
-    _tally(launches, *counters)
-
-
-def _tally(launches: dict, *counters: dict) -> None:
-    """Add each wrapper's launches to the counter that holds its name."""
-    for k, v in launches.items():
-        next(c for c in counters if k in c)[k] += v
-
-
 class _Carry(NamedTuple):
     """A runner's carried buffers for one particle count, updated in
     place by every step: the addresses a captured step reads and
@@ -1118,19 +1045,17 @@ class _Carry(NamedTuple):
     resort: torch.Tensor  # bool[]: "auto" re-sorts at the next step
 
 
-class SortedEpisodeRunner:
+class SortedEpisodeRunner(GraphedRunner):
     """Episode runner with PERSISTENT sorted order (see
-    make_sorted_episode_runner).  ``runner(state, num_steps)`` returns
-    the state in the original particle order; ``syncs.count`` and
-    ``steps`` count host reads and steps over all calls.
+    make_sorted_episode_runner) on the graphed-runner core
+    (``core/graphed.py::GraphedRunner``: the carry per particle count,
+    the eager first step, the capture and the replays, the telemetry
+    ring, the original order restored once a call).
 
     On CUDA (one device, ``graphed``) a step is two captured CUDA graphs,
-    one with the re-sort and one without, replayed once a step: the
-    first step for a particle count runs eagerly, the next captures both
-    (they share one memory pool).  ``launches`` holds each graph's
-    kernel launches, which every replay adds to ``LAUNCHES`` and, the
-    screen-space stage's (one a hybrid step), to
-    ``screenspace_kernel.LAUNCHES``.  A fixed
+    one with the re-sort and one without, replayed once a step;
+    ``launches`` holds the window kernel's launches and, the screen-space
+    stage's (one a hybrid step), the screen-space kernel's.  A fixed
     ``resort_every`` chooses the graph on the host (no read); "auto"
     reads the flag that the step computes on the device (the JAX
     package's ``_trigger_update``), one read a step.  Eager steps run the
@@ -1146,23 +1071,16 @@ class SortedEpisodeRunner:
     ranks sharing one card, or CPU ranks) it steps eagerly.  Steps are
     also eager on scenes whose densest cell outgrows the rescue window
     (``phase3``: the packed rescue phase reads its counts on the host).
-    A failed capture raises.
 
-    ``telemetry`` (``core/telemetry.py::Telemetry``) holds the set-up
-    laps and, for every ``with_stats`` call, its steps' stage times and
-    counters.  Such a call steps with a ``StepRing``: stamps of the
-    device clock at the step's start, after the screen-space stage
-    (hybrid), the order (key, sort, permutes), the main launch with its
-    plan, the rescue, and the step's end, which also copies the window
-    overflow, the undecided real lanes (hybrid) and rescue phase 2's
-    listed lanes into the step's ring row; the ring is read once after
-    the call's last step.  Those steps are captured as a pair of graphs
-    of their own (captured on the first ``with_stats`` call), so a call
-    without stats replays graphs without a stamp; ``telemetry_launches``
-    holds the stamped pair's telemetry kernel launches, which every
-    replay of it adds to ``telemetry_kernel.LAUNCHES``.  Each step of a
-    ``with_stats`` call runs inside the profiler span "psys.runner.step"
-    (``core/telemetry.py::step_span``)."""
+    A ``with_stats`` call's ``StepRing`` takes stamps of the device clock
+    at the step's start, after the screen-space stage (hybrid), the order
+    (key, sort, permutes), the main launch with its plan, the rescue, and
+    the step's end, which also copies the window overflow, the undecided
+    real lanes (hybrid) and rescue phase 2's listed lanes into the step's
+    ring row."""
+
+    #: re-sort, keep the current order
+    BRANCHES = (True, False)
 
     def __init__(self, sp: _Sorted, resort_every, resort_threshold: int,
                  tex=None, mesh=None,
@@ -1171,30 +1089,22 @@ class SortedEpisodeRunner:
                 not isinstance(resort_every, int) or resort_every < 1):
             raise ValueError(f"resort_every must be a positive int or "
                              f"'auto', got {resort_every!r}")
+        dev = sp.gravity.device
+        #: the packed rescue phase can run (decided here, from the tables)
+        self.phase3 = _phase3_possible(sp)
+        # captured: CUDA, no phase 3, collectives on the device.  A mesh's
+        # NCCL watchdog thread queries events while this thread captures:
+        # only this thread's calls may break the capture
+        super().__init__(
+            dev, dev.type == "cuda" and not self.phase3
+            and (mesh is None or not dp.through_host(mesh)),
+            hybrid=tex is not None, telemetry=telemetry,
+            error_mode="global" if mesh is None else "thread_local")
         self.sp = sp
         self.resort_every = resort_every
         self.resort_threshold = resort_threshold
         self.tex = tex
         self.mesh = mesh
-        self.syncs = HostSyncs()
-        self.steps = 0
-        #: the packed rescue phase can run (decided here, from the tables)
-        self.phase3 = _phase3_possible(sp)
-        #: steps are captured and replayed (CUDA, no phase 3, collectives
-        #: on the device)
-        self.graphed = (sp.gravity.device.type == "cuda" and not self.phase3
-                        and (mesh is None or not dp.through_host(mesh)))
-        #: kernel launches per replay, by wrapper, once captured (the
-        #: telemetry's stamps are not counted)
-        self.launches: dict = {}
-        #: telemetry kernel launches per replay of the stamped pair
-        self.telemetry_launches: dict = {}
-        self.telemetry = telemetry or Telemetry(Stopwatch())
-        self._carry: dict = {}  # N -> _Carry
-        self._rings: dict = {}  # N -> StepRing
-        self._graphs: dict = {}  # (N, with stats) -> {re-sort: CUDAGraph}
-        self._pools: dict = {}  # N -> the memory pool its graphs share
-        self._warm: set = set()  # (N, with stats) whose first step ran eagerly
 
     def _collide(self, rows8, key_s, active_s, tap=None):
         return _collide_sorted(
@@ -1202,19 +1112,38 @@ class SortedEpisodeRunner:
             self.syncs, active_s=active_s, tap=tap,
         )
 
-    def _carry_for(self, n: int, dev) -> _Carry:
-        b = self._carry.get(n)
-        if b is None:
-            i32 = dict(dtype=torch.int32, device=dev)
-            b = _Carry(
-                rows8=torch.empty((8, n), dtype=torch.float32, device=dev),
-                aux=torch.empty((2, n), **i32), key=torch.empty((n,), **i32),
-                act=None if self.tex is None else torch.empty(
-                    (n,), dtype=torch.bool, device=dev),
-                n_over=torch.zeros((), **i32), base=torch.zeros((), **i32),
-                resort=torch.zeros((), dtype=torch.bool, device=dev))
-            self._carry[n] = b
+    def _new_carry(self, n: int) -> _Carry:
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        return _Carry(
+            rows8=torch.empty((8, n), dtype=torch.float32, device=dev),
+            aux=torch.empty((2, n), **i32), key=torch.empty((n,), **i32),
+            act=None if self.tex is None else torch.empty(
+                (n,), dtype=torch.bool, device=dev),
+            n_over=torch.zeros((), **i32), base=torch.zeros((), **i32),
+            resort=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def _load(self, state: ParticleState) -> _Carry:
+        n = state.pos.shape[-1]
+        if n % BLOCK:
+            raise ValueError(f"N={n} is not a multiple of {BLOCK}")
+        b = self._carry_for(n)
+        b.rows8.copy_(torch.cat([state.pos, state.vel, state.radius[None],
+                                 state.restitution[None]], dim=0))
+        b.aux[0].copy_(state.collisions)
         return b
+
+    def _branch(self, b: _Carry, i: int) -> bool:
+        """Whether step ``i`` re-sorts.  Step 0 establishes the order;
+        under "auto" a later step re-sorts when the flag that the previous
+        step set on the device says so (with a mesh, from the overflow
+        summed over it: every rank reads the same flag and takes the same
+        branch)."""
+        if i == 0:
+            return True
+        if self.resort_every == "auto":
+            return bool(self.syncs.read(b.resort))
+        return i % self.resort_every == 0
 
     def _step(self, b: _Carry, do_sort: bool, ring: Optional[StepRing] = None):
         """One step in place on the carried buffers; with ``do_sort``
@@ -1265,115 +1194,18 @@ class SortedEpisodeRunner:
                 ring.count_undecided(b.act, rows8[0])
             ring.end(b.n_over)
 
-    def _capture(self, n: int, b: _Carry, ring: Optional[StepRing]) -> dict:
-        """Capture the step with and without the re-sort (with ``ring``,
-        the stamped step), in the memory pool of N's graphs.  Their kernel
-        launches, which must be the same as every other pair's, go to
-        ``self.launches`` and back out of ``LAUNCHES`` and the
-        screen-space kernel's ``LAUNCHES``, the stamped pair's
-        telemetry launches to ``self.telemetry_launches`` and back out of
-        ``telemetry_kernel.LAUNCHES``: a capture launches nothing."""
-        graphs, made, stamped = {}, [self.launches] if self.launches else [], []
-        # a mesh's NCCL watchdog thread queries events while this thread
-        # captures: only this thread's calls may break the capture
-        mode = "global" if self.mesh is None else "thread_local"
-        for do_sort in (True, False):
-            g, _, (launches, ss_launches, telemetry) = _capture(
-                lambda: self._step(b, do_sort, ring), LAUNCHES, SS_LAUNCHES,
-                tk.LAUNCHES, pool=self._pools.get(n), error_mode=mode)
-            self._pools[n] = g.pool()
-            graphs[do_sort] = g
-            made.append({**launches, **ss_launches})
-            stamped.append(telemetry)
-        if any(m != made[0] for m in made) or stamped[0] != stamped[1]:
-            raise RuntimeError(f"the captured steps launch different kernels: "
-                               f"{made}, telemetry {stamped}")
-        self.launches = made[0]
-        if ring is not None:
-            self.telemetry_launches = stamped[0]
-        self._graphs[n, ring is not None] = graphs
-        return graphs
-
-    def _advance(self, n: int, b: _Carry, i: int, do_sort: bool, graphed: bool,
-                 ring: Optional[StepRing]) -> bool:
-        """Step ``i`` of a call: choose the branch, then replay its graph,
-        or step eagerly.  The first step for N, with or without stats
-        (eager: its kernels load before any capture), and the captures
-        are timed as the set-up lap "capture".  Returns the branch."""
-        if i and self.resort_every != "auto":
-            do_sort = i % self.resort_every == 0
-        elif i:
-            do_sort = bool(self.syncs.read(b.resort))
-        key = (n, ring is not None)
-        graphs = self._graphs.get(key) if graphed else None
-        if graphs is None and key in self._warm and not graphed:
-            self._step(b, do_sort, ring)
-        elif graphs is None:
-            setup = self.telemetry.setup
-            setup.restart()
-            if key in self._warm:
-                graphs = self._capture(n, b, ring)
-            else:
-                self._step(b, do_sort, ring)
-                self._warm.add(key)
-            fence(b.rows8)
-            setup.lap("capture")
-        if graphs is not None:
-            _replay(graphs[do_sort], self.launches, LAUNCHES, SS_LAUNCHES)
-            if ring is not None:
-                _tally(self.telemetry_launches, tk.LAUNCHES)
-        return do_sort
-
     def __call__(self, state: ParticleState, num_steps: int,
                  with_stats: bool = False):
         """``with_stats=True``: also return the per-step window-overflow
         counts (host ints, read once after the last step; with a mesh,
         summed over its ranks)."""
-        n = state.pos.shape[-1]
-        dev = state.pos.device
-        if dev != self.sp.gravity.device:
-            raise ValueError(f"state is on {dev}, the runner's "
-                             f"tables on {self.sp.gravity.device}")
-        if n % BLOCK:
-            raise ValueError(f"N={n} is not a multiple of {BLOCK}")
         if os.environ.get("PSYS_SPEED_GUARD", "0") not in ("", "0"):
             check_speed_cover(self.sp.cfg, num_steps=num_steps, state=state,
                               strict=True)
-        b = self._carry_for(n, dev)
-        b.rows8.copy_(torch.cat([state.pos, state.vel, state.radius[None],
-                                 state.restitution[None]], dim=0))
-        b.aux[0].copy_(state.collisions)
-        b.aux[1].copy_(torch.arange(n, dtype=torch.int32, device=dev))
-        graphed = self.graphed and _CAPTURE
-        call = self.telemetry.calls
-        self.telemetry.calls += 1
-        ring = None
-        if with_stats:
-            ring = self._rings.get(n)
-            if ring is None:
-                ring = self._rings[n] = StepRing(dev, hybrid=self.tex is not None)
-        # "auto": step 0 establishes the order; later steps re-sort when
-        # the flag the previous step set on the device says so (with a
-        # mesh, from the overflow summed over it: every rank reads the
-        # same flag and takes the same branch)
-        do_sort = True
-
-        def step(i: int) -> None:
-            nonlocal do_sort
-            do_sort = self._advance(n, b, i, do_sort, graphed, ring)
-
-        overflows = self.telemetry.steps(call, ring, num_steps, step)
+        out = super().__call__(state, num_steps, with_stats)
         if with_stats and self.resort_every != "auto" and self.mesh is not None:
-            overflows = dp.sum_int_list(overflows, self.mesh)
-        self.steps += num_steps
-        # restore the original order once
-        ids = b.aux[1].long()
-        out8 = torch.empty_like(b.rows8)
-        out_aux = torch.empty_like(b.aux)
-        out8[:, ids] = b.rows8
-        out_aux[:, ids] = b.aux
-        out = state._replace(pos=out8[0:3], vel=out8[3:6], collisions=out_aux[0])
-        return (out, overflows) if with_stats else out
+            return out[0], dp.sum_int_list(out[1], self.mesh)
+        return out
 
 
 def make_sorted_episode_runner(
@@ -1558,7 +1390,6 @@ def make_p2p_step(
     with_stats: bool = False,
     max_radius: Optional[float] = None,
     window: int = 512,
-    fallback_capacity: int = 8192,
     device="cuda",
 ):
     """Gravity-box step with particle-particle collisions + container
@@ -1583,8 +1414,8 @@ def make_p2p_step(
     the step; every later call copies the state in, replays, and
     returns fresh tensors (a state the caller keeps never changes under
     it).  ``launches`` holds a replay's kernel launches, which each replay
-    adds to the p2p kernel's ``LAUNCHES``.  ``uncaptured()`` steps
-    eagerly.  A failed capture raises.
+    adds to the p2p kernel's ``LAUNCHES`` (``core/graphed.py``).
+    ``uncaptured()`` steps eagerly.  A failed capture raises.
 
     ``with_stats``: return ``(state, {"cell_overflow": ...})`` so
     saturated-cell drops (one-sided impulses) are observable.  The
@@ -1594,9 +1425,7 @@ def make_p2p_step(
     stay exact).
     ``max_radius``: largest particle radius in the state
     (heterogeneous-radii runs must pass it).
-    ``window``/``fallback_capacity``: kernel-variant tuning (per-row
-    window size, and the chunk size of the host-looped reference
-    fallback, which no step runs; see ops/p2p_sorted).
+    ``window``: the kernel variant's per-row window size.
     """
     dev = resolve_device(device)
     meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)
@@ -1616,9 +1445,7 @@ def make_p2p_step(
     def collide(state: ParticleState):
         act = active_mask(state)
         if variant == "kernel":
-            return p2ps.p2p_collide_window(
-                state, meta, active=act, window=window,
-                fallback_capacity=fallback_capacity)
+            return p2ps.p2p_collide_window(state, meta, active=act, window=window)
         if variant == "sorted":
             return p2ps.p2p_collide_sorted(state, meta, active=act, syncs=syncs)
         if variant == "dense":
@@ -1634,21 +1461,21 @@ def make_p2p_step(
 
     def run(state: ParticleState):
         n = state.pos.shape[-1]
-        if not (variant == "kernel" and dev.type == "cuda" and _CAPTURE):
+        if not (variant == "kernel" and dev.type == "cuda" and gcore._CAPTURE):
             return eager(state)
         if n not in graphs:
             # the first call for a count steps eagerly, then captures
             result = eager(state)
             static = ParticleState(*(x.clone(memory_format=torch.contiguous_format)
                                      for x in state))
-            g, out, (made,) = _capture(lambda: eager(static), P2P_LAUNCHES)
+            g, out, made = _capture(lambda: eager(static))
             graphs[n] = (g, static, out)
             launches.update(made)
             return result
         g, static, (out, overflow) = graphs[n]
         for dst, src in zip(static, state):
             dst.copy_(src)
-        _replay(g, launches, P2P_LAUNCHES)
+        _replay(g, launches)
         return state._replace(pos=out.pos.clone(), vel=out.vel.clone(),
                               collisions=out.collisions.clone()), overflow.clone()
 
@@ -1678,72 +1505,54 @@ class _P2PCarry(NamedTuple):
     n_over: torch.Tensor  # i32[]: this step's window overflow
 
 
-class P2PEpisodeRunner:
+class P2PEpisodeRunner(GraphedRunner):
     """Gravity-box episode runner with PERSISTENT sorted order (see
-    make_p2p_episode_runner).  ``runner(state, num_steps)`` returns the
-    state in the original particle order; ``syncs.count`` and ``steps``
-    count host reads and steps over all calls.
+    make_p2p_episode_runner) on the graphed-runner core
+    (``core/graphed.py::GraphedRunner``), which carries the state padded
+    to a multiple of ``BLOCK`` particles.
 
     No step reads the host (``syncs.count`` stays 0): the fallback is
-    sized on the device, and every step sorts, so a step has no branch.
+    sized on the device, and every step sorts, so a step has one branch.
     On CUDA (``graphed``) the step is one captured CUDA graph per padded
-    particle count: the first step for a count runs eagerly, the next
-    captures it, and every step from then on replays it.  ``launches``
-    holds a replay's kernel launches, which each replay adds to the p2p
-    kernel's ``LAUNCHES``.  ``uncaptured()`` steps eagerly.  A failed
-    capture raises.
+    particle count; ``launches`` holds the p2p kernel's launches.
 
-    ``telemetry`` (``core/telemetry.py::Telemetry``) holds the set-up lap
-    ``capture`` (the first step for a count and its capture) and, for
-    every ``with_stats`` call, its steps' stage times and counters, as the
-    sorted runner's does.  Such a call steps with a ``StepRing``: stamps of
-    the device clock at the step's start, after the order (cell key,
-    stable sort, CSR offsets, row gather and pad), after B3's cells
-    launch ("main"), after the fallback's compaction and worklist launch
-    ("rescue") and at the step's end (walls, integration, write-back),
-    which also copies the window overflow and the fallback's listed lanes
-    into the step's ring row; the ring is read once after the call's last
-    step.  Those steps replay a graph of their own (captured on the first
-    ``with_stats`` call), so a call without stats replays a graph without
-    a stamp; ``telemetry_launches`` holds the stamped graph's telemetry
-    kernel launches, which every replay of it adds to
-    ``telemetry_kernel.LAUNCHES``.  Each step of a ``with_stats`` call runs
-    inside the profiler span "psys.runner.step"."""
+    A ``with_stats`` call's ``StepRing`` takes stamps of the device clock
+    at the step's start, after the order (cell key, stable sort, CSR
+    offsets, row gather and pad), after B3's cells launch ("main"), after
+    the fallback's compaction and worklist launch ("rescue") and at the
+    step's end (walls, integration, write-back), which also copies the
+    window overflow and the fallback's listed lanes into the step's ring
+    row."""
 
     def __init__(self, box_lo, box_hi, cfg: SimConfig, meta: pg.PGridMeta,
-                 window: int, fallback_capacity: int, device: torch.device):
+                 window: int, device: torch.device):
+        self.gravity = torch.tensor(cfg.gravity, dtype=torch.float32,
+                                    device=device)
+        # the tensor's device, indexed ("cuda:0"), is the states'
+        super().__init__(self.gravity.device, device.type == "cuda")
         self.box = _box(box_lo, box_hi, device)
         self.cfg = cfg
         self.meta = meta
         self.window = window
-        self.fallback_capacity = fallback_capacity
-        self.gravity = torch.tensor(cfg.gravity, dtype=torch.float32,
-                                    device=device)
-        self.syncs = HostSyncs()
-        self.steps = 0
-        #: steps are captured and replayed (CUDA)
-        self.graphed = device.type == "cuda"
-        #: kernel launches per replay, by wrapper, once captured (the
-        #: telemetry's stamps are not counted)
-        self.launches: dict = {}
-        #: telemetry kernel launches per replay of the stamped graph
-        self.telemetry_launches: dict = {}
-        self.telemetry = Telemetry(Stopwatch())
-        self._carry: dict = {}  # n_k -> _P2PCarry
-        self._rings: dict = {}  # n_k -> StepRing
-        self._graphs: dict = {}  # (n_k, with stats) -> CUDAGraph
-        self._warm: set = set()  # (n_k, with stats) whose first step ran eagerly
 
-    def _carry_for(self, n_k: int, dev) -> _P2PCarry:
-        b = self._carry.get(n_k)
-        if b is None:
-            i32 = dict(dtype=torch.int32, device=dev)
-            b = self._carry[n_k] = _P2PCarry(
-                rows8=torch.empty((8, n_k), dtype=torch.float32, device=dev),
-                aux=torch.empty((2, n_k), **i32), n_over=torch.zeros((), **i32))
+    def _new_carry(self, n_k: int) -> _P2PCarry:
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return _P2PCarry(
+            rows8=torch.empty((8, n_k), dtype=torch.float32, device=self.device),
+            aux=torch.empty((2, n_k), **i32), n_over=torch.zeros((), **i32))
+
+    def _load(self, state: ParticleState) -> _P2PCarry:
+        n = state.pos.shape[-1]
+        n_k = ((n + BLOCK - 1) // BLOCK) * BLOCK
+        b = self._carry_for(n_k)
+        b.rows8[:, :n].copy_(p2ps._state_rows(state))
+        b.aux[0, :n].copy_(state.collisions)
+        if n_k > n:
+            b.rows8[:, n:].copy_(p2ps._pad_columns(n_k - n, self.device))
+            b.aux[0, n:].zero_()
         return b
 
-    def _step(self, b: _P2PCarry, ring: Optional[StepRing] = None):
+    def _step(self, b: _P2PCarry, branch=None, ring: Optional[StepRing] = None):
         """One step in place on the carried buffers: plan + kernel, the
         device-sized fallback, then walls and integration in sorted
         order.  With ``ring`` the step stamps its stages and writes its
@@ -1776,74 +1585,6 @@ class P2PEpisodeRunner:
         if ring is not None:
             ring.end(b.n_over)
 
-    def _advance(self, n_k: int, b: _P2PCarry, graphed: bool,
-                 ring: Optional[StepRing]) -> None:
-        """One step: replay the graph of (n_k, with stats), or step
-        eagerly.  The first step for a key (eager: its kernels load before
-        any capture) and the capture are timed as the set-up lap
-        "capture"."""
-        key = (n_k, ring is not None)
-        g = self._graphs.get(key) if graphed else None
-        if g is None and key in self._warm and not graphed:
-            self._step(b, ring)
-        elif g is None:
-            setup = self.telemetry.setup
-            setup.restart()
-            if key in self._warm:
-                g, _, (self.launches, telemetry) = _capture(
-                    lambda: self._step(b, ring), P2P_LAUNCHES, tk.LAUNCHES)
-                self._graphs[key] = g
-                if ring is not None:
-                    self.telemetry_launches = telemetry
-            else:
-                self._step(b, ring)
-                self._warm.add(key)
-            fence(b.rows8)
-            setup.lap("capture")
-        if g is not None:
-            _replay(g, self.launches, P2P_LAUNCHES)
-            if ring is not None:
-                _tally(self.telemetry_launches, tk.LAUNCHES)
-
-    def __call__(self, state: ParticleState, num_steps: int,
-                 with_stats: bool = False):
-        """``with_stats=True``: also return the per-step counts of lanes
-        redone by the window-overflow fallback (host ints, the ring's
-        "n_over" column, read once after the last step)."""
-        n = state.pos.shape[-1]
-        dev = state.pos.device
-        if dev != self.gravity.device:
-            raise ValueError(f"state is on {dev}, the runner on "
-                             f"{self.gravity.device}")
-        n_k = ((n + BLOCK - 1) // BLOCK) * BLOCK
-        b = self._carry_for(n_k, dev)
-        b.rows8[:, :n].copy_(p2ps._state_rows(state))
-        b.aux[0, :n].copy_(state.collisions)
-        if n_k > n:
-            b.rows8[:, n:].copy_(p2ps._pad_columns(n_k - n, dev))
-            b.aux[0, n:].zero_()
-        b.aux[1].copy_(torch.arange(n_k, dtype=torch.int32, device=dev))
-        graphed = self.graphed and _CAPTURE
-        call = self.telemetry.calls
-        self.telemetry.calls += 1
-        ring = None
-        if with_stats:
-            ring = self._rings.get(n_k)
-            if ring is None:
-                ring = self._rings[n_k] = StepRing(dev, hybrid=False)
-        overflows = self.telemetry.steps(
-            call, ring, num_steps, lambda i: self._advance(n_k, b, graphed, ring))
-        self.steps += num_steps
-        # restore the original order once
-        ids = b.aux[1].long()
-        out8 = torch.empty_like(b.rows8)
-        out_aux = torch.empty_like(b.aux)
-        out8[:, ids] = b.rows8
-        out_aux[:, ids] = b.aux
-        out = state._replace(pos=out8[0:3, :n], vel=out8[3:6, :n],
-                             collisions=out_aux[0, :n])
-        return (out, overflows) if with_stats else out
-
 
 def make_p2p_episode_runner(
     box_lo,
@@ -1854,7 +1595,6 @@ def make_p2p_episode_runner(
     max_radius: Optional[float] = None,
     *,
     window: int = 512,
-    fallback_capacity: int = 8192,
     device="cuda",
 ) -> P2PEpisodeRunner:
     """Gravity-box episode runner with PERSISTENT sorted order: the p2p
@@ -1874,5 +1614,4 @@ def make_p2p_episode_runner(
     dev = resolve_device(device)
     meta = _p2p_meta(box_lo, box_hi, cfg, cell_size, capacity, max_radius)
     p2ps.check_meta(meta)
-    return P2PEpisodeRunner(box_lo, box_hi, cfg, meta, window,
-                            fallback_capacity, dev)
+    return P2PEpisodeRunner(box_lo, box_hi, cfg, meta, window, dev)

@@ -8,6 +8,9 @@ stale sources compile at once, one nvcc process each.
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` and IEEE division and
 square root, so every kernel rounds exactly as its plain PyTorch version
 (which runs each operation as its own, unfused kernel).
+
+Each kernel module counts its launches in a ``LaunchCounter``, its
+``LAUNCHES``, which registers its wrapper names in ``COUNTERS``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,25 @@ _fns: dict = {}
 #: per-source ptxas report (registers, shared memory, spills) of the
 #: builds made by this process
 build_log: dict = {}
+#: wrapper name -> the ``LaunchCounter`` that counts its launches
+COUNTERS: dict = {}
+
+
+class LaunchCounter(dict):
+    """A kernel module's launches by wrapper name (plain-version calls are
+    not counted), registered in ``COUNTERS``: wrapper names are unique
+    across modules, so a graph capture can take out every launch it
+    counted and each replay add them back to their counters
+    (``core/graphed.py``)."""
+
+    def __init__(self, *names: str):
+        super().__init__(dict.fromkeys(names, 0))
+        for k in names:
+            COUNTERS[k] = self
+
+    def reset(self) -> None:
+        for k in self:
+            self[k] = 0
 
 
 def _nvcc() -> str:

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.build import LaunchCounter
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     BLOCK,
     LANE,
@@ -67,8 +68,9 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p import pair_contac
 from particlesystemhybridcollisiondetection_tpu_torch.ops.p2p_plan import N_GROUPS
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"p2p_window_collide_sorted": 0, "p2p_window_collide_cells": 0,
-            "p2p_collide_worklist": 0}
+LAUNCHES = LaunchCounter("p2p_window_collide_sorted", "p2p_window_collide_cells",
+                         "p2p_collide_worklist")
+reset_launches = LAUNCHES.reset
 
 # threads a block of the worklist entry point (csrc/p2p_window_kernel.cu,
 # WL_THREADS); its grid is as many blocks as occupancy keeps resident
@@ -79,11 +81,6 @@ MAX_WORKLIST_LANES = (2**31 - 1) // 8
 # The kernel stages three [4][w] float buffers in shared memory (an SM has
 # 227 KB for a block); above this window it cannot launch
 MAX_WINDOW = 4096
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _check_window(n: int, n_pad: int, w: int) -> None:

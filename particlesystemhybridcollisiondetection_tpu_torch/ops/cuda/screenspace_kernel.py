@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.build import LaunchCounter
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     _check,
     _ptr,
@@ -31,7 +32,8 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
 )
 
 #: kernel launches, both entry points, since the last ``reset_launches``
-LAUNCHES = {"screen_space_collide": 0}
+LAUNCHES = LaunchCounter("screen_space_collide")
+reset_launches = LAUNCHES.reset
 
 # the grid-stride loop's blocks of 256 threads per SM: 8 fill an SM's
 # 2,048 threads
@@ -40,11 +42,6 @@ BLOCKS_PER_SM = 8
 _CAMERA_ARGTYPES = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
                     *([ctypes.c_void_p] * 5), ctypes.c_float, ctypes.c_int64,
                     ctypes.c_int32, ctypes.c_void_p]
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _camera_args(tex, gravity, dev) -> list:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from particlesystemhybridcollisiondetection_tpu_torch.config import FLOAT_SENTINEL
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.build import LaunchCounter
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel import (
     _check,
     _ptr,
@@ -36,12 +37,8 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
 REAL_BOUND = float(np.float32(FLOAT_SENTINEL * 0.5))
 
 #: kernel launches by wrapper, since the last ``reset_launches``
-LAUNCHES = {"stamp": 0, "count_undecided": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = LaunchCounter("stamp", "count_undecided")
+reset_launches = LAUNCHES.reset
 
 
 def _opt_ptr(t) -> ctypes.c_void_p:

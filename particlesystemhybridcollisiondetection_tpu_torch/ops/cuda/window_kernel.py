@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.build import LaunchCounter
 from particlesystemhybridcollisiondetection_tpu_torch.ops.grid import (
     GridMeta,
     TriangleGrid,
@@ -57,8 +58,9 @@ _INF = float("inf")
 _K_SLAB = 16
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"cells_window_lookup": 0, "window_collide_sorted": 0,
-            "window_collide_sorted_rescue": 0, "window_collide_worklist": 0}
+LAUNCHES = LaunchCounter("cells_window_lookup", "window_collide_sorted",
+                         "window_collide_sorted_rescue", "window_collide_worklist")
+reset_launches = LAUNCHES.reset
 
 # The window kernel stages [9][w] floats of pair rows in shared memory
 # (an SM has 227 KB for a block); above this window it cannot launch
@@ -75,11 +77,6 @@ _MAX_SPLIT = 16
 WORKLIST_SCAN_BLOCKS = 256
 # listed lanes a block of the collide kernel stages at a time (its threads)
 WORKLIST_BATCH = 256
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class WindowTables(NamedTuple):

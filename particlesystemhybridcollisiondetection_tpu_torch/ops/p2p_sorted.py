@@ -288,14 +288,10 @@ def p2p_window_phase2(
     parts: WindowParts,
     *,
     beta: float = 0.5,
-    fallback_capacity: int = 8192,
 ) -> tuple[ParticleState, torch.Tensor]:
     """Exact redo of the overflow lanes (``_p2p_device_fallback``) +
     unsort back to the caller's order; no host read.  Returns (new_state,
-    n_over), n_over an i32 device scalar.  ``fallback_capacity`` is the
-    chunk size of the host-looped reference fallback
-    (``_p2p_chunked_fallback``), which this route replaces: the device
-    route has no chunks."""
+    n_over), n_over an i32 device scalar."""
     pos_k, vel_k, ncon_k, n_over = _p2p_device_fallback(parts, beta)
     return _unsort(state, pos_k, vel_k, ncon_k, parts.perm), n_over
 
@@ -307,7 +303,6 @@ def p2p_collide_window(
     beta: float = 0.5,
     active=None,
     window: int = 512,
-    fallback_capacity: int = 8192,
 ) -> tuple[ParticleState, torch.Tensor]:
     """Exact particle-particle collision pass via the 9-run window kernel
     (the "kernel" variant), with no host read.
@@ -315,13 +310,11 @@ def p2p_collide_window(
     Drop-in for p2p_collide_sorted; returns (new_state, window_overflow)
     where window_overflow (an i32 device scalar, as in the JAX package)
     counts the particles redone exactly by the fallback: results are
-    exact for ANY overflow count.  ``fallback_capacity``: see
-    ``p2p_window_phase2``.
+    exact for ANY overflow count.
     """
     parts = p2p_window_phase1(state, meta, beta=beta, active=active,
                               window=window)
-    return p2p_window_phase2(state, parts, beta=beta,
-                             fallback_capacity=fallback_capacity)
+    return p2p_window_phase2(state, parts, beta=beta)
 
 
 def _p2p_device_fallback(parts: WindowParts, beta: float, tap=None):

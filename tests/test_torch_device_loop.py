@@ -22,6 +22,7 @@ from particlesystemhybridcollisiondetection_tpu.geometry.scenes import sample_sc
 from particlesystemhybridcollisiondetection_tpu.ops import grid as jgrid
 from particlesystemhybridcollisiondetection_tpu.ops.pallas import window_kernel as jwk
 from particlesystemhybridcollisiondetection_tpu_torch import convert
+from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as tgraphed
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
     ParticleState,
@@ -346,7 +347,7 @@ def test_captured_runner_matches_eager_on_card(fast, dense_probe):
             if captured:
                 runs.append(runner(state, 60, with_stats=True))
             else:
-                with tstep.uncaptured():
+                with tgraphed.uncaptured():
                     runs.append(runner(state, 60, with_stats=True))
             want = 59 if kw["resort_every"] == "auto" else 0
             assert runner.syncs.count == want

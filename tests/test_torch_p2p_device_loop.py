@@ -32,6 +32,7 @@ from particlesystemhybridcollisiondetection_tpu.ops.integrate import (
     integrate as j_integrate,
 )
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as tgraphed
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import active_mask
 from particlesystemhybridcollisiondetection_tpu_torch.ops import p2p_plan as tplan
@@ -381,7 +382,7 @@ def test_captured_p2p_matches_eager_on_card():
                 runs.append(run(state, 12, with_stats=True))
                 assert sum(run.launches.values()) == 2  # the kernel, the worklist
             else:
-                with tstep.uncaptured():
+                with tgraphed.uncaptured():
                     runs.append(run(state, 12, with_stats=True))
             assert run.syncs.count == 0
         (a, ovf_a), (b, ovf_b) = runs
@@ -394,7 +395,7 @@ def test_captured_p2p_matches_eager_on_card():
             step = tstep.make_p2p_step(*BOX, cfg, window=window, with_stats=True)
             assert step.variant == "kernel"
             s, ovf = state, []
-            with contextlib.nullcontext() if captured else tstep.uncaptured():
+            with contextlib.nullcontext() if captured else tgraphed.uncaptured():
                 for _ in range(12):
                     s, st = step(s)
                     ovf.append(st["cell_overflow"])

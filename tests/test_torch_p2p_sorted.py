@@ -198,8 +198,7 @@ def test_window_matches_jax_and_oracle(window):
     jm, tm = metas(((0, 0, 0), (8, 8, 8), 0.6, 16))
     js, ts = both(snap(*cloud))
     jo, j_over = jp2ps.p2p_collide_window(js, jm, window=window, interpret=True)
-    to, t_over = tp2ps.p2p_collide_window(ts, tm, window=window,
-                                          fallback_capacity=64)
+    to, t_over = tp2ps.p2p_collide_window(ts, tm, window=window)
     # an i32 device scalar, as the JAX package's
     assert t_over.dtype == torch.int32 and t_over.dim() == 0
     n_over = int(t_over)
@@ -335,7 +334,7 @@ def test_fallback_redoes_every_lane_with_clamped_last_chunk():
     assert n_ref == 1024 and syncs.count == 1 + 9 * 3
     ref = tp2ps._unsort(ts, *ref, parts.perm)
     assert_matches_oracle(ref, *brute_force_p2p(*cloud))
-    out, n_over = tp2ps.p2p_window_phase2(ts, junk(), fallback_capacity=400)
+    out, n_over = tp2ps.p2p_window_phase2(ts, junk())
     assert int(n_over) == 1024
     for f in ("pos", "vel", "collisions"):
         assert torch.equal(getattr(out, f), getattr(ref, f)), f

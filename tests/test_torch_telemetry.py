@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from particlesystemhybridcollisiondetection_tpu_torch.config import SimConfig
+from particlesystemhybridcollisiondetection_tpu_torch.core import graphed as tgraphed
 from particlesystemhybridcollisiondetection_tpu_torch.core import step as tstep
 from particlesystemhybridcollisiondetection_tpu_torch.core import telemetry as ttel
 from particlesystemhybridcollisiondetection_tpu_torch.core.state import (
@@ -55,6 +56,11 @@ def _runner(fast, method, device="cpu", **kw):
         device=device, **cam, **kw)
 
 
+def _launched(counts: dict) -> dict:
+    """The wrappers of ``counts`` that launch (a runner's ``launches``)."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def _equal(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("pos", "vel", "collisions"))
 
@@ -66,7 +72,7 @@ def test_stats_leave_the_states_bit_for_bit(fast, method, monkeypatch):
     its stamps non-decreasing along the slots, and the stage times sum to
     each step's stamped span, and a step's span and the gap after it to
     its period; the overflow list is the ring's counter."""
-    monkeypatch.setattr(tstep, "StepRing", functools.partial(ttel.StepRing, cap=16))
+    monkeypatch.setattr(tgraphed, "StepRing", functools.partial(ttel.StepRing, cap=16))
     state = spawn_grid(fast.config, 1, device="cpu")
     on, off = _runner(fast, method), _runner(fast, method)
     a, ovf = on(state, STEPS, with_stats=True)
@@ -184,6 +190,32 @@ def test_stopwatch_restart_drops_the_time_between_laps():
     assert set(sw.laps) == {"a"} and sw.laps["a"] < 0.05
 
 
+def test_launch_counters_are_one_registry():
+    """Every kernel module's ``LAUNCHES`` is registered in
+    ``build.COUNTERS`` under each of its wrapper names, no name in two
+    modules, and a replay adds each wrapper's launches to its own
+    module's counter (``core/graphed.py::_replay``)."""
+    import types
+
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        p2p_window_kernel as tpk,
+    )
+
+    mods = (twk, tssk, ttk, tpk)
+    names = [k for m in mods for k in m.LAUNCHES]
+    assert len(names) == len(set(names)) == len(build.COUNTERS)
+    assert all(build.COUNTERS[k] is m.LAUNCHES for m in mods for k in m.LAUNCHES)
+    before = {k: c[k] for k, c in build.COUNTERS.items()}
+    replays = []
+    tgraphed._replay(types.SimpleNamespace(replay=lambda: replays.append(1)),
+                     {"window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1})
+    assert replays == [1]
+    assert {k: c[k] - before[k] for k, c in build.COUNTERS.items() if c[k] != before[k]} == {
+        "window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1}
+    assert twk.LAUNCHES["window_collide_sorted"] == before["window_collide_sorted"] + 2
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -209,7 +241,7 @@ def test_captured_stats_graphs_on_card(fast, method):
     step_launches = {**STEP_LAUNCHES, "screen_space_collide": int(hybrid)}
     tel0 = dict(ttk.LAUNCHES)
     a, ovf = on(state, STEPS, with_stats=True)
-    assert on.telemetry_launches == stamped
+    assert on.telemetry_launches == _launched(stamped)
     assert {k: ttk.LAUNCHES[k] - tel0[k] for k in tel0} == {
         k: STEPS * v for k, v in stamped.items()}
     before, tel0 = dict(twk.LAUNCHES), dict(ttk.LAUNCHES)
@@ -219,15 +251,15 @@ def test_captured_stats_graphs_on_card(fast, method):
         k: STEPS * v for k, v in STEP_LAUNCHES.items()}
     assert tssk.LAUNCHES["screen_space_collide"] - ss0 == STEPS * hybrid
     assert ttk.LAUNCHES == tel0 and off.telemetry_launches == {}
-    assert off.launches == step_launches == on.launches
+    assert off.launches == _launched(step_launches) == on.launches
     assert set(off._graphs) == {(state.pos.shape[-1], False)}
     assert set(on._graphs) == {(state.pos.shape[-1], True)}
-    with tstep.uncaptured():
+    with tgraphed.uncaptured():
         c, ovf_c = _runner(fast, method, device=dev, cells_lookup="kernel")(
             state, STEPS, with_stats=True)
     assert _equal(a, b) and _equal(a, c) and ovf == ovf_c
     on(a, 5)  # a call without stats captures the plain pair beside
-    assert on.launches == step_launches and len(on._graphs) == 2
+    assert on.launches == _launched(step_launches) and len(on._graphs) == 2
     rec = on.telemetry.records[0]
     assert all((x >= 0).all() for x in rec.stages_ms.values())
     assert (rec.period_ms > 0).all()
@@ -304,7 +336,7 @@ def test_p2p_stats_leave_the_states_bit_for_bit(monkeypatch):
     stages sum to each step's stamped span, the overflow list is the
     ring's "n_over" counter and the fallback's listed lanes ("n_lanes")
     are the overflow."""
-    monkeypatch.setattr(tstep, "StepRing", functools.partial(ttel.StepRing, cap=16))
+    monkeypatch.setattr(tgraphed, "StepRing", functools.partial(ttel.StepRing, cap=16))
     state = _p2p_cloud()
     on, off = _p2p_runner(), _p2p_runner()
     a, ovf = on(state, 20, with_stats=True)
@@ -381,15 +413,15 @@ def test_p2p_captured_stats_graph_on_card():
     on, off = _p2p_runner(dev), _p2p_runner(dev)
     tel0 = dict(ttk.LAUNCHES)
     a, ovf = on(state, 20, with_stats=True)
-    assert on.telemetry_launches == {"stamp": 5, "count_undecided": 0}
+    assert on.telemetry_launches == {"stamp": 5}
     assert ttk.LAUNCHES["stamp"] - tel0["stamp"] == 5 * 20
     before, tel0 = dict(tpk.LAUNCHES), dict(ttk.LAUNCHES)
     b = off(state, 20)
     assert ttk.LAUNCHES == tel0 and off.telemetry_launches == {}
-    assert {k: tpk.LAUNCHES[k] - before[k] for k in before} == {
+    assert _launched({k: tpk.LAUNCHES[k] - before[k] for k in before}) == {
         k: 20 * v for k, v in off.launches.items()}
     assert off.launches == on.launches and sum(on.launches.values()) == 2
-    with tstep.uncaptured():
+    with tgraphed.uncaptured():
         c, ovf_c = _p2p_runner(dev)(state, 20, with_stats=True)
     assert _equal(a, b) and _equal(a, c) and ovf == ovf_c and min(ovf) > 0
     assert on.syncs.count == 0 and off.syncs.count == 0
