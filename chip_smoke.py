@@ -160,7 +160,11 @@ Phases (each raises on failure; nothing is caught and passed over):
      benchmark's 87-step calls by the runner, every overflow lane listed
      on every step, and the rescue at a free-fall step, step 1500 and the
      step with the most overflow lanes, eager and replayed, equal there
-     to the host-looped rescue and timed (CUDA events); (b) k = 0, the three
+     to the host-looped rescue and timed (CUDA events), and at each of
+     them the rescue's front against its plain version
+     (``rescue_front_case``: the list, the counts, (start, count) at the
+     listed lanes and the fit mask, bit for bit; timed beside its byte
+     bound); (b) k = 0, the three
      methods on all four cameras, 50 steps: a row for each, and each
      camera's undecided mask on the k = 7 state (active lanes, and the
      falling sentinels, which must stay out of the hybrid's plan).  The
@@ -196,8 +200,11 @@ Phases (each raises on failure; nothing is caught and passed over):
      launches, and its worklist entry point are listed under that
      kernel's entry; the screen-space kernel, "path": "hybrid", with its
      launches on the hybrid path (one a step), the main path (none) and
-     the k = 7 protocol; the telemetry kernels, "path": "telemetry", last,
-     with their launches on the main, hybrid and k = 7 paths).
+     the k = 7 protocol; the rescue's front, with its launches on the
+     main, hybrid, protocol, CLI, mesh and headline paths (one a sorted
+     step), its k = 7 free-fall case nested; the telemetry kernels,
+     "path": "telemetry", last, with their launches on the main, hybrid
+     and k = 7 paths).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero (and
 prints no result) without CUDA or without the port's package beside it.
 """
@@ -220,10 +227,11 @@ RESCUE_CHUNK = 8192
 # phase 2's runner calls: step 0, steps 1-151, 151-600, 600-650, 650-700
 PHASE2_CALLS = (1, 150, 449, 50, 50)
 # a sorted step's launches by wrapper (cells lookup "kernel"): B2, B1's
-# main launch, the worklist entry point (every overflow lane); B1 at the
-# rescue window never
+# main launch, the rescue's front (the list), the worklist entry point
+# (every overflow lane); B1 at the rescue window never
 STEP_LAUNCHES = {"cells_window_lookup": 1, "window_collide_sorted": 1,
-                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1}
+                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1,
+                 "rescue_front": 1}
 REPS = 20
 PROFILER_TRIES = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -2448,6 +2456,63 @@ def rescue_inputs(runner, spawn, step: int) -> tuple:
     return kept[0]
 
 
+def rescue_front_case(torch, card: str, tag: str, sp, sorted_state, overflow) -> dict:
+    """The rescue's front (``window_kernel.rescue_front``) against its plain
+    version run on the card (``_rescue_front_plain``, the CPU route of
+    ``_device_rescue``) on one step's rescue inputs, without and with the
+    fit mask: the list, both counts, (start, count) at every listed lane
+    and the mask at every lane, bit for bit (raises on any difference);
+    then the kernel alone timed (without the mask, as the dragon's steps
+    run it) beside its byte bound: what these inputs need (every lane's
+    flag, an overflow lane's rows and table entry, a listed lane's
+    (start, count) and slot, the bitmap written and read), and beside it
+    the bound of the same front at every lane (41 B a lane: rows, flag,
+    table entry, (start, count) written; and the list).  Returns its
+    kernel-table numbers."""
+    from particlesystemhybridcollisiondetection_tpu_torch.core import step as S
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import (
+        window_kernel as wk,
+    )
+
+    def front(with_fit):
+        return wk.rescue_front(*sorted_state[:2], overflow, sp.tables.cells2, sp.meta,
+                               dt=sp.cfg.dt, w=sp.rescue_window, with_fit=with_fit)
+
+    def plain():
+        return S._rescue_front_plain(sorted_state, overflow, sp)
+
+    p_start, p_count, p_fit, p_lanes, p_n, p_over = plain()
+    n, m, n_over = overflow.shape[0], int(p_n), int(p_over)
+    pick = p_lanes[:m].long()
+    differ = {}
+    for with_fit in (False, True):
+        start, count, fit, lanes, n_lanes, k_over = front(with_fit)
+        torch.cuda.synchronize()
+        differ["with the mask" if with_fit else "without"] = (
+            int(int(n_lanes) != m) + int(int(k_over) != n_over)
+            + int((lanes[:m] != p_lanes[:m]).sum())
+            + int((start[pick] != p_start[pick]).sum())
+            + int((count[pick] != p_count[pick]).sum())
+            + (int((fit != p_fit).sum()) if with_fit else 0))
+    print(f"[{card}] the rescue's front ({tag}; {n} lanes, {n_over} overflow, {m} "
+          f"listed): entries differing from the plain front's {differ}")
+    if any(differ.values()):
+        raise RuntimeError(f"the rescue's front ({tag}) disagrees with its plain version")
+    t = timed(torch, lambda: front(False), plain)
+    words = -(-n // 32) * 4
+    n_bytes = n + n_over * (24 + 8) + m * (8 + 4) + 2 * words
+    n_bytes_full = n * (24 + 1 + 8 + 8) + m * 4
+    bound = n_bytes / H100_BYTES_PER_S * 1e3
+    bound_full = n_bytes_full / H100_BYTES_PER_S * 1e3
+    print(f"[{card}] the rescue's front ({tag}): {t['ms']:.4f} ms by events around the "
+          f"call, {ms_text(t['device_ms'])} on the device ({by_kernel(t.pop('by_kernel'))}); "
+          f"plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms (bytes: {n_bytes} B), "
+          f"at every lane {bound_full:.4f} ms (bytes: {n_bytes_full} B)")
+    return {"max_abs_err": 0, **t, "bound_ms": bound, "bound_by": "bytes",
+            "bound_every_lane_ms": bound_full, "lanes": n, "overflow": n_over,
+            "listed": m}
+
+
 def rescue_route(torch, card: str, runner, spawn) -> dict:
     """The rescue (``_device_rescue``: every overflow lane straight to the
     worklist) on DragonScene at k = 7.
@@ -2552,8 +2617,10 @@ def rescue_route(torch, card: str, runner, spawn) -> dict:
         if differ or listed != n_over:
             raise RuntimeError(f"step {step}: the rescue and the host-looped rescue "
                                "disagree, or it left an overflow lane unlisted")
-        numbers[where] = {"step": step, "overflow": n_over, "listed": listed, "ms": ms}
         del graph, bufs, out, host
+        numbers[where] = {"step": step, "overflow": n_over, "listed": listed, "ms": ms,
+                          "front": rescue_front_case(torch, card, f"{where}, step {step}",
+                                                     sp, sorted_state, overflow)}
     print(f"[{card}] the rescue's checks: {time.perf_counter() - t_phase:.1f} s")
     return numbers
 
@@ -2850,12 +2917,14 @@ HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
 # the profiler's names of the kernels that each launch count's launches
 # run, once each a launch (B1's main and rescue counts launch the same
 # kernel; the worklist entry point launches its scan, then its collide
-# kernel, the last of a sorted step's kernels of B1)
+# kernel, the last of a sorted step's kernels of B1; the rescue's front
+# its two kernels before them)
 TRACED_KERNELS = {"window_collide_sorted": ("window_collide_kernel",),
                   "window_collide_sorted_rescue": ("window_collide_kernel",),
                   "cells_window_lookup": ("cells_window_lookup_kernel",),
                   "window_collide_worklist": ("worklist_scan_kernel",
-                                              "worklist_collide_kernel")}
+                                              "worklist_collide_kernel"),
+                  "rescue_front": ("rescue_front_kernel", "rescue_list_kernel")}
 
 
 def by_symbol(launches: dict) -> dict:
@@ -2868,9 +2937,10 @@ def by_symbol(launches: dict) -> dict:
 
 
 def traced_launches(prof) -> dict:
-    """Launches of B1, B2 and the worklist entry point's kernels in a
-    profiler session, counted by kernel name (replayed graphs' kernels
-    included); {} when the device trace came back empty."""
+    """Launches of B1, B2, the worklist entry point's and the rescue
+    front's kernels in a profiler session, counted by kernel name
+    (replayed graphs' kernels included); {} when the device trace came
+    back empty."""
     from torch.autograd import DeviceType
 
     counts = {symbol: 0 for symbols in TRACED_KERNELS.values() for symbol in symbols}
@@ -3474,6 +3544,19 @@ def main() -> int:
          "launches": hyb["ss_launches"], "launches_main": 0,
          "launches_protocol_k7": prot["ss_launches_k7"], **prot["screenspace"],
          "library_ms": None, "path": "hybrid"},
+        # the rescue's front (no TPU kernel behind it: the JAX package
+        # leaves it to XLA), held against its plain version on the k = 7
+        # spatial episode's rescue inputs at step 1500 and, nested, at its
+        # free-fall step; its launches, one a sorted step, on every path
+        {"name": "rescue_front", "route": "cuda", "source": PORT_CSRC + "window_kernel.cu",
+         "replaces": None, "launches": launches["rescue_front"],
+         "launches_hybrid": h_launch["rescue_front"],
+         "launches_protocol_k7": k7["rescue_front"],
+         "launches_cli": cli_launches("rescue_front"),
+         "launches_mesh": mesh_launch("rescue_front"), **headline_keys("rescue_front"),
+         **prot["rescue_route"][f"k={PROTOCOL_K} step {PROTOCOL_SNAP_STEP}"]["front"],
+         "free_fall": {**prot["rescue_route"]["free fall"]["front"], "library_ms": None},
+         "library_ms": None},
         {**b3[0], "launches_cli": cli_launches(b3[0]["name"])},
         *b3[1:],
         tel_entry("psys_stamp_kernel", "stamp", prot["telemetry"]["stamp"]),

@@ -89,6 +89,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.window_kernel imp
     compact_lanes,
     isolated_rows,
     plan_tail,
+    rescue_front,
     window_collide_sorted,
     window_collide_worklist,
 )
@@ -688,7 +689,9 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
     a row's window starts at or below each of its lanes' starts rounded
     down to 128, so every lane that ``_chunked_rescue``'s phase 1 decides
     fits alone and is decided here with the same bits.  Nothing of the
-    rescue runs at full N but the fit's lookup and the compaction.
+    rescue runs at full N but its front, the fit's lookup, the overflow
+    count and the compaction: on CUDA one launch of ``rescue_front``, on
+    the CPU its plain version (``_rescue_front_plain``).
 
     Phase 3 (``_packed_rescue``, host reads): the rest, on scenes where a
     cell holds more than ``rescue_window`` - 127 candidates
@@ -696,14 +699,18 @@ def _device_rescue(kernel_out, sorted_state, overflow, sp, *, key_s, ovf_count,
 
     Returns (pos_k, vel_k, hit_k, n_over), n_over an i32 device scalar."""
     pos_k, vel_k, hit_k = kernel_out
-    n_over = overflow.sum(dtype=torch.int32)
-    start, count, fit = _phase2_plan(sorted_state, sp)
-    lanes, n_lanes = compact_lanes(overflow & fit)
+    phase3 = _phase3_possible(sp)
+    if overflow.device.type == "cuda":
+        front = rescue_front(*sorted_state[:2], overflow, sp.tables.cells2, sp.meta,
+                             dt=sp.cfg.dt, w=sp.rescue_window, with_fit=phase3)
+    else:
+        front = _rescue_front_plain(sorted_state, overflow, sp)
+    start, count, fit, lanes, n_lanes, n_over = front
     if tap is not None:
         tap.lanes = n_lanes
     window_collide_worklist(*sorted_state, start, count, lanes, n_lanes, sp.tables,
                             pos_k, vel_k, hit_k, **_rescue_kw(sp))
-    if _phase3_possible(sp):
+    if phase3:
         _packed_rescue(pos_k, vel_k, hit_k, overflow & ~fit, sorted_state, ovf_count,
                        sp.packed, sp.meta, sp.num_groups, sp.group, sp.gravity,
                        sp.cfg, sp.m_cap, syncs=syncs)
@@ -715,6 +722,17 @@ def _rescue_kw(sp) -> dict:
     cfg = sp.cfg
     return dict(w=sp.rescue_window, k_static=sp.meta.max_tris_per_cell,
                 gravity=cfg.gravity, dt=cfg.dt, backoff=cfg.backoff)
+
+
+def _rescue_front_plain(sorted_state, overflow, sp):
+    """The plain version of the ``rescue_front`` kernel, ``_device_rescue``'s
+    route on the CPU and the kernel's oracle on the card: (start, count,
+    fit, lanes, n_lanes, n_over) as ``rescue_front`` returns them, every
+    lane's (start, count) and fit, the list's tail zeroed."""
+    n_over = overflow.sum(dtype=torch.int32)
+    start, count, fit = _phase2_plan(sorted_state, sp)
+    lanes, n_lanes = compact_lanes(overflow & fit)
+    return start, count, fit, lanes, n_lanes, n_over
 
 
 def _phase2_plan(sorted_state, sp):

@@ -13,7 +13,8 @@
 // lanes are dense (the protocol's 2M particles) and bytes where they are
 // few (the 1M scene: candidate rows and lane state); its design, a flat
 // list of (lane, k) items spread over the card, is set out at the entry
-// point's kernels.
+// point's kernels.  The rescue's front (psys_rescue_front, near the
+// end), which lists that entry point's lanes, is set out at its kernels.
 //
 // Per particle, in sorted order: the exact swept-sphere test against its
 // candidates k < count, read from rows ws + rel + k of the planar
@@ -704,6 +705,183 @@ __global__ void __launch_bounds__(WL_THREADS, WL_MIN_BLOCKS) worklist_collide_ke
   }
 }
 
+// The rescue's front (rescue_front_kernel, then rescue_list_kernel): what
+// the steps' rescue does over all N sorted lanes before its worklist.
+// Each lane to look up gets its cell's (start, count) by the midpoint
+// lookup and the fit test (start % 128 + count <= the rescue window, or
+// no candidate); the overflow lanes are counted; the lanes that overflow
+// and fit are listed in lane order, with their count.  It replaces no TPU
+// kernel: the JAX package leaves this to XLA.  Its plain version is
+// core/step.py's _rescue_front_plain (_phase2_plan, compact_lanes and the
+// overflow's sum, the CPU route of _device_rescue), whose bits it gives:
+// the list, both counts, (start, count) at every listed lane and, with
+// the fit mask asked for (scenes where the packed phase can run), the
+// mask at every lane.  The lookup is ops/grid.py's lookup_pos, cell_coords and cell_index in their
+// order of operations: pos + vel * (dt / 2), minus the origin, times 1 /
+// cell size, floor, a clamp in float that keeps a NaN (whose cast then
+// gives 0, as PyTorch's cast on the card does), the linear id.
+//
+// What bounds it on the H100: bytes, and few of them.  Every lane's
+// overflow flag (1 B) is read; only a lane to look up reads its position
+// and velocity (24 B) and its cell's (start, count) (8 B), and only a
+// listed lane writes its (start, count) and its list entry (12 B); a
+// ballot word of 32 lanes is written and read.  Without the mask that is
+// about 5 MB at the protocol's 2M lanes with 55,000 of them overflowing,
+// 1.5 us of memory time: the eager front it replaces made some 35
+// launches over full-N temporaries.  The design keeps it to two
+// launches whose grids, one block a tile of RF_TILE lanes, depend on N
+// alone, never on the list:
+//
+//   * rescue_front_kernel: a thread takes RF_ITEMS lanes, a warp 32
+//     neighbouring ones at a time.  All of a thread's loads of one kind go
+//     out before any is used (flags, then rows, then the table), so the
+//     chain of dependent loads is three deep whatever RF_ITEMS is.  A
+//     warp's ballot of "listed" is one word of a bitmap; the block writes
+//     its tile's counts of listed and overflow lanes.
+//   * rescue_list_kernel: a block sums the listed counts of the tiles
+//     before it (its first slot in the list), scans its tile's words, and
+//     each thread writes its listed lanes at that slot + the bits of the
+//     words before its word + the bits below its own: the list in lane
+//     order.  The last block writes the two counts.  Slots past the count
+//     are left unwritten: the worklist kernels read lanes[j] for j below
+//     it only.
+constexpr int RF_THREADS = WL_THREADS;  // block_scan's block
+constexpr int RF_ITEMS = 8;
+constexpr int RF_TILE = RF_THREADS * RF_ITEMS;
+constexpr int RF_WORDS = RF_TILE / 32;
+
+// The grid of the lookup (ops/grid.py::GridMeta), each value as the
+// float32 the plain version computes with.
+struct CellGrid {
+  float ox, oy, oz;  // the origin
+  float inv_h;       // 1 / cell size
+  float half_dt;     // dt * 0.5
+  int32_t dx, dy, dz;
+};
+
+// torch.clamp(c, 0, d - 1) on the card (a NaN stays NaN), then the cast
+// to int32.
+__device__ __forceinline__ int32_t clamp_cell(float c, int32_t d) {
+  if (!isnan(c)) c = fminf(fmaxf(c, 0.f), (float)(d - 1));
+  return (int32_t)c;
+}
+
+template <bool WITH_FIT>
+__global__ void __launch_bounds__(RF_THREADS) rescue_front_kernel(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const uint8_t* __restrict__ overflow, const int32_t* __restrict__ cells2,
+    int64_t n_cells, CellGrid g, int32_t w, int64_t n, int32_t* __restrict__ start,
+    int32_t* __restrict__ count, uint8_t* __restrict__ fit_out,
+    uint32_t* __restrict__ words, int32_t* __restrict__ tiles) {
+  __shared__ int32_t s_listed[RF_THREADS / 32], s_over[RF_THREADS / 32];
+  const int64_t first = (int64_t)blockIdx.x * RF_TILE + threadIdx.x;
+  bool ovf[RF_ITEMS], look[RF_ITEMS];
+#pragma unroll
+  for (int i = 0; i < RF_ITEMS; ++i) {
+    const int64_t l = first + i * RF_THREADS;
+    ovf[i] = l < n && overflow[l] != 0;
+    look[i] = WITH_FIT ? l < n : ovf[i];
+  }
+  float mx[RF_ITEMS], my[RF_ITEMS], mz[RF_ITEMS];
+#pragma unroll
+  for (int i = 0; i < RF_ITEMS; ++i) {
+    const int64_t l = first + i * RF_THREADS;
+    if (look[i]) {
+      const float vx = vel[l] * g.half_dt, vy = vel[n + l] * g.half_dt,
+                  vz = vel[2 * n + l] * g.half_dt;
+      mx[i] = pos[l] + vx;
+      my[i] = pos[n + l] + vy;
+      mz[i] = pos[2 * n + l] + vz;
+    }
+  }
+  int32_t s[RF_ITEMS], c[RF_ITEMS];
+#pragma unroll
+  for (int i = 0; i < RF_ITEMS; ++i) {
+    if (look[i]) {
+      const int32_t cx = clamp_cell(floorf((mx[i] - g.ox) * g.inv_h), g.dx);
+      const int32_t cy = clamp_cell(floorf((my[i] - g.oy) * g.inv_h), g.dy);
+      const int32_t cz = clamp_cell(floorf((mz[i] - g.oz) * g.inv_h), g.dz);
+      const int32_t cid = (cx * g.dy + cy) * g.dz + cz;
+      s[i] = cells2[cid];
+      c[i] = cells2[n_cells + cid];
+    }
+  }
+  int32_t listed = 0, over = 0;
+#pragma unroll
+  for (int i = 0; i < RF_ITEMS; ++i) {
+    const int64_t l = first + i * RF_THREADS;
+    bool take = false;
+    if (look[i]) {
+      // start % 128 with Python's sign rule is its low seven bits
+      const bool fit = c[i] <= 0 || (s[i] & (LANE - 1)) + c[i] <= w;
+      if (WITH_FIT) fit_out[l] = fit;
+      take = ovf[i] && fit;
+      if (take) {
+        start[l] = s[i];
+        count[l] = c[i];
+      }
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, take);
+    if ((threadIdx.x & 31) == 0 && l < n) words[l >> 5] = word;
+    listed += __popc(word);
+    over += __popc(__ballot_sync(0xffffffffu, ovf[i]));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_listed[threadIdx.x >> 5] = listed;
+    s_over[threadIdx.x >> 5] = over;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t tl = 0, to = 0;
+    for (int q = 0; q < RF_THREADS / 32; ++q) {
+      tl += s_listed[q];
+      to += s_over[q];
+    }
+    tiles[blockIdx.x] = tl;
+    tiles[gridDim.x + blockIdx.x] = to;
+  }
+}
+
+__global__ void __launch_bounds__(RF_THREADS) rescue_list_kernel(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ tiles, int64_t n,
+    int32_t* __restrict__ lanes, int32_t* __restrict__ counts) {
+  __shared__ int32_t s_w[RF_THREADS / 32];
+  __shared__ uint32_t s_word[RF_WORDS];
+  __shared__ int32_t s_off[RF_WORDS];
+  const int32_t b = blockIdx.x, nt = gridDim.x;
+  const bool last = b == nt - 1;  // the same in the whole block
+  int32_t before = 0, over = 0, slot0, n_over = 0;
+  for (int32_t t = threadIdx.x; t < b; t += RF_THREADS) before += tiles[t];
+  block_scan(before, s_w, slot0);
+  if (last) {
+    for (int32_t t = threadIdx.x; t < nt; t += RF_THREADS) over += tiles[nt + t];
+    block_scan(over, s_w, n_over);
+  }
+  const int64_t w0 = (int64_t)b * RF_WORDS;
+  uint32_t word = 0;
+  if (threadIdx.x < RF_WORDS && w0 + threadIdx.x < (n + 31) / 32) word = words[w0 + threadIdx.x];
+  int32_t in_tile;
+  const int32_t off = block_scan((int32_t)__popc(word), s_w, in_tile);
+  if (threadIdx.x < RF_WORDS) {
+    s_word[threadIdx.x] = word;
+    s_off[threadIdx.x] = off;
+  }
+  __syncthreads();
+  const int64_t lane0 = (int64_t)b * RF_TILE;
+  const uint32_t below = (1u << (threadIdx.x & 31)) - 1u;
+#pragma unroll
+  for (int i = 0; i < RF_ITEMS; ++i) {
+    const int j = i * RF_THREADS + threadIdx.x;  // the lane within the tile
+    const uint32_t wd = s_word[j >> 5];
+    if ((wd >> (j & 31)) & 1u)
+      lanes[slot0 + s_off[j >> 5] + __popc(wd & below)] = (int32_t)(lane0 + j);
+  }
+  if (last && threadIdx.x == 0) {
+    counts[0] = slot0 + in_tile;
+    counts[1] = n_over;
+  }
+}
+
 // A block may use 48 KB of shared memory, static and dynamic together,
 // unless more is allowed for its kernel; the kernels here hold under 8 KB
 // of static shared memory.
@@ -790,6 +968,43 @@ extern "C" int psys_window_collide_worklist(
   worklist_collide_kernel<<<(unsigned)blocks, WL_THREADS, 0, s>>>(
       pos, vel, radius, restit, start, count, lanes, n_lanes, off, bsum, scan_blocks,
       edge_key, edge_cnt, pairs, p_pad, pos_out, vel_out, hit_out, n, k_static, st);
+  return (int)cudaGetLastError();
+}
+
+// The rescue's front over the n sorted lanes (pos/vel f32[3, n], overflow
+// bool[n]; cells2 i32[2, n_cells], the grid g, the rescue window w):
+// start/count i32[n] at every listed lane, fit bool[n] at every lane
+// unless null, lanes i32[n] (the listed lanes first, the slots past them
+// unwritten), counts i32[2] (listed, overflow).  Scratch: `scratch_len`
+// i32, at least ceil(n / 32) + 2 ceil(n / RF_TILE) (a bitmap word of 32
+// lanes, a tile's counts), filled by the first kernel before the second
+// reads it.  n < 2^31.  Returns the first CUDA error, 0 if none.
+extern "C" int psys_rescue_front(const float* pos, const float* vel,
+                                 const uint8_t* overflow, const int32_t* cells2,
+                                 int64_t n_cells, float ox, float oy, float oz,
+                                 float inv_h, float half_dt, int32_t dx, int32_t dy,
+                                 int32_t dz, int32_t w, int64_t n, int32_t* start,
+                                 int32_t* count, uint8_t* fit, int32_t* lanes,
+                                 int32_t* counts, int32_t* scratch, int64_t scratch_len,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
+  const int64_t n_words = (n + 31) / 32, n_tiles = (n + RF_TILE - 1) / RF_TILE;
+  if (n >= ((int64_t)1 << 31) || scratch_len < n_words + 2 * n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const CellGrid g = {ox, oy, oz, inv_h, half_dt, dx, dy, dz};
+  uint32_t* words = (uint32_t*)scratch;
+  int32_t* tiles = scratch + n_words;
+  if (fit != nullptr)
+    rescue_front_kernel<true><<<(unsigned)n_tiles, RF_THREADS, 0, s>>>(
+        pos, vel, overflow, cells2, n_cells, g, w, n, start, count, fit, words, tiles);
+  else
+    rescue_front_kernel<false><<<(unsigned)n_tiles, RF_THREADS, 0, s>>>(
+        pos, vel, overflow, cells2, n_cells, g, w, n, start, count, fit, words, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rescue_list_kernel<<<(unsigned)n_tiles, RF_THREADS, 0, s>>>(words, tiles, n, lanes,
+                                                              counts);
   return (int)cudaGetLastError();
 }
 

@@ -14,11 +14,17 @@ kernels, now hand-written CUDA (``csrc/``):
     (``compact_lanes``), each alone: two kernels, a scan of the listed
     lanes' candidate bounds and a grid sized from occupancy that walks
     the (lane, k) items in equal shares (``worklist_schedule`` is the
-    schedule's plain version).
+    schedule's plain version);
+  * ``rescue_front`` (``csrc/window_kernel.cu``): that list, made in one
+    pass over every sorted lane with the fit's lookup and the overflow
+    count.
 
-Each wrapper has its plain PyTorch version beside it (``*_plain``).  A
-wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel (on the current stream) or raises.  Each
+Each wrapper has its plain PyTorch version beside it (``*_plain``), but
+``rescue_front``, whose plain version is ``core/step.py``'s
+``_rescue_front_plain`` (the rescue's CPU route, which calls that
+module's own helpers).  A wrapper runs the plain version only for
+tensors on the CPU (``rescue_front`` refuses them); for CUDA tensors it
+launches its kernel (on the current stream) or raises.  Each
 launch adds one to ``LAUNCHES[<wrapper name>]`` (the window kernel's
 rescue launches to ``LAUNCHES["window_collide_sorted_rescue"]``).
 
@@ -59,7 +65,8 @@ _K_SLAB = 16
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 LAUNCHES = LaunchCounter("cells_window_lookup", "window_collide_sorted",
-                         "window_collide_sorted_rescue", "window_collide_worklist")
+                         "window_collide_sorted_rescue", "window_collide_worklist",
+                         "rescue_front")
 reset_launches = LAUNCHES.reset
 
 # The window kernel stages [9][w] floats of pair rows in shared memory
@@ -77,6 +84,8 @@ _MAX_SPLIT = 16
 WORKLIST_SCAN_BLOCKS = 256
 # listed lanes a block of the collide kernel stages at a time (its threads)
 WORKLIST_BATCH = 256
+# lanes a block of the rescue front's kernels takes (RF_TILE in the source)
+RESCUE_FRONT_TILE = 2048
 
 
 class WindowTables(NamedTuple):
@@ -764,3 +773,69 @@ def window_collide_worklist(
     )
     _raise_on(err, "window_collide_worklist")
     LAUNCHES["window_collide_worklist"] += 1
+
+
+def rescue_front(pos_s, vel_s, overflow, cells2, meta: GridMeta, *, dt: float, w: int,
+                 with_fit: bool):
+    """The sorted rescue's work over all N lanes, on CUDA, in one pass (two
+    kernels whose grids depend on N alone): each overflow lane's (start,
+    count) in ``cells2`` by the midpoint lookup (``ops/grid.py``'s
+    ``lookup_pos`` and ``cell_index``), the fit test (no candidate, or
+    start % 128 + count <= ``w``), the overflow count and the list of the
+    lanes that overflow and fit.
+
+    pos_s, vel_s: f32[3, N] sorted; overflow: bool[N]; cells2: i32[2, C]
+    (``WindowTables.cells2``, C the cells of ``meta``), all contiguous on
+    one CUDA device.  Returns (start, count, fit, lanes, n_lanes, n_over):
+    start, count i32[N], written at every listed lane (not necessarily
+    elsewhere); fit bool[N] at every lane when ``with_fit`` (the packed
+    phase takes ``overflow & ~fit``), else None; lanes i32[N], the listed
+    lanes in lane order in its first n_lanes slots, the slots past them
+    left unwritten (the worklist kernels read no further); n_lanes,
+    n_over i32[] on the device.  Those are, bit for bit, what the plain
+    version gives there (``core/step.py::_rescue_front_plain``).  Nothing
+    is read on the host, so a step can capture it; one count a call."""
+    dev = pos_s.device
+    if dev.type != "cuda":
+        raise ValueError(f"rescue_front takes CUDA tensors, got {dev}; its plain "
+                         "version is core/step.py::_rescue_front_plain")
+    n = pos_s.shape[-1]
+    if n >= 2**31:
+        raise ValueError(f"{n} lanes do not index in 32 bits")
+    n_cells = meta.num_cells
+    for name, t, dt_, shape in (
+        ("pos_s", pos_s, torch.float32, (3, n)),
+        ("vel_s", vel_s, torch.float32, (3, n)),
+        ("overflow", overflow, torch.bool, (n,)),
+        ("cells2", cells2, torch.int32, (2, n_cells)),
+    ):
+        _check(name, t, dt_, shape, dev)
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+
+    c = ctypes
+    fn = build.kernel_function("window_kernel", "psys_rescue_front", [
+        *([c.c_void_p] * 4), c.c_int64, *([c.c_float] * 5), *([c.c_int32] * 4),
+        c.c_int64, *([c.c_void_p] * 6), c.c_int64, c.c_void_p,
+    ])
+    i32 = dict(dtype=torch.int32, device=dev)
+    start = torch.empty((n,), **i32)
+    count = torch.empty((n,), **i32)
+    fit = torch.empty((n,), dtype=torch.bool, device=dev) if with_fit else None
+    lanes = torch.empty((n,), **i32)
+    counts = torch.empty((2,), **i32)
+    # a bitmap word of 32 lanes, a tile's listed and overflow counts
+    scratch = torch.empty((-(-n // 32) + 2 * -(-n // RESCUE_FRONT_TILE),), **i32)
+    f32 = np.float32
+    # each constant rounded to float32 as the plain version's tensor
+    # arithmetic rounds it
+    ox, oy, oz = (float(f32(x)) for x in meta.origin)
+    dx, dy, dz = meta.dims
+    err = fn(
+        _ptr(pos_s), _ptr(vel_s), _ptr(overflow), _ptr(cells2), n_cells, ox, oy, oz,
+        float(f32(1.0 / meta.cell_size)), float(f32(dt * 0.5)), dx, dy, dz, w, n,
+        _ptr(start), _ptr(count), c.c_void_p(None) if fit is None else _ptr(fit),
+        _ptr(lanes), _ptr(counts), _ptr(scratch), scratch.shape[0], _stream(dev),
+    )
+    _raise_on(err, "rescue_front")
+    LAUNCHES["rescue_front"] += 1
+    return start, count, fit, lanes, counts[0], counts[1]

@@ -238,7 +238,7 @@ def test_run_episode_on_cpu(fast, method):
     assert res.collisions.shape == (49,) and res.collisions.sum() > 0
     assert twk.LAUNCHES == {"cells_window_lookup": 0, "window_collide_sorted": 0,
                             "window_collide_sorted_rescue": 0,
-                            "window_collide_worklist": 0}
+                            "window_collide_worklist": 0, "rescue_front": 0}
 
 
 

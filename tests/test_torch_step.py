@@ -302,7 +302,7 @@ def test_run_episode_spatial_on_cpu(fast):
     assert res.collisions.shape == (49,) and res.collisions.sum() > 0
     assert twk.LAUNCHES == {"cells_window_lookup": 0, "window_collide_sorted": 0,
                             "window_collide_sorted_rescue": 0,
-                            "window_collide_worklist": 0}
+                            "window_collide_worklist": 0, "rescue_front": 0}
 
 
 def test_plan_chooser_matches_jax():

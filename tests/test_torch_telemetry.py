@@ -37,9 +37,11 @@ torch.set_num_threads(1)
 
 STEPS = 60
 METHODS = ["spatial", "hybrid"]
-# what a step of the runner launches, by wrapper (B2 with the code table)
+# what a step of the runner launches on CUDA, by wrapper (B2 with the code
+# table); on the CPU every stage takes its plain version and launches none
 STEP_LAUNCHES = {"cells_window_lookup": 1, "window_collide_sorted": 1,
-                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1}
+                 "window_collide_sorted_rescue": 0, "window_collide_worklist": 1,
+                 "rescue_front": 1}
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +106,22 @@ def test_stats_leave_the_states_bit_for_bit(fast, method, monkeypatch):
     assert len(rec.gap_ms) == 39 and (rec.gap_ms >= 0).all()
     steps = sum(rec.stages_ms.values())
     np.testing.assert_allclose(steps[:-1] + rec.gap_ms, rec.period_ms, rtol=1e-12)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_cpu_route_launches_nothing(fast, method):
+    """On the CPU every stage of a runner's step takes its plain version:
+    its steps add nothing to any launch counter (``STEP_LAUNCHES``' keys,
+    the rescue's front among them, which launches once a sorted step on
+    CUDA) and its ``launches`` stays empty."""
+    from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import build
+
+    assert set(STEP_LAUNCHES) <= set(build.COUNTERS)
+    before = {k: c[k] for k, c in build.COUNTERS.items()}
+    runner = _runner(fast, method)
+    runner(spawn_grid(fast.config, 1, device="cpu"), 5)
+    assert {k: c[k] for k, c in build.COUNTERS.items()} == before
+    assert runner.launches == {}
 
 
 def test_undecided_counter_is_the_stages_undecided_real_lanes(fast):
@@ -208,12 +226,17 @@ def test_launch_counters_are_one_registry():
     assert all(build.COUNTERS[k] is m.LAUNCHES for m in mods for k in m.LAUNCHES)
     before = {k: c[k] for k, c in build.COUNTERS.items()}
     replays = []
-    tgraphed._replay(types.SimpleNamespace(replay=lambda: replays.append(1)),
-                     {"window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1})
-    assert replays == [1]
-    assert {k: c[k] - before[k] for k, c in build.COUNTERS.items() if c[k] != before[k]} == {
-        "window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1}
-    assert twk.LAUNCHES["window_collide_sorted"] == before["window_collide_sorted"] + 2
+    try:
+        tgraphed._replay(types.SimpleNamespace(replay=lambda: replays.append(1)),
+                         {"window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1})
+        assert replays == [1]
+        assert {k: c[k] - before[k] for k, c in build.COUNTERS.items()
+                if c[k] != before[k]} == {
+            "window_collide_sorted": 2, "stamp": 3, "p2p_collide_worklist": 1}
+        assert twk.LAUNCHES["window_collide_sorted"] == before["window_collide_sorted"] + 2
+    finally:  # the counts this replay added were made up: later tests read the counters
+        for k, c in build.COUNTERS.items():
+            c[k] = before[k]
 
 
 def _card():
