@@ -34,7 +34,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from portbench import guard, trace
+from portbench import guard, ranks as ranks_, roofline, trace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(ROOT)
@@ -94,6 +94,13 @@ def chunk_plan(mix: dict, seed: int, trace_on: bool):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _readings(system, dev) -> tuple:
+    """(the device's memory peak, the system's ``counters()`` or None)."""
+    counters = getattr(system, "counters", None)
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+            counters and counters())
 
 
 class Keeper:
@@ -179,10 +186,49 @@ def build_inputs(cfg: dict, seed: int, device):
     return (build_scene(cfg),) + build_spawn(cfg, seed, device)
 
 
-def load_system(cfg: dict, sc: dict, device):
+def load_system(cfg: dict, sc: dict, device, group=None):
+    """The configuration's system; on more than one rank ``build`` is
+    given the group (its ``rank`` and ``world``)."""
     mod = load_module(os.path.join(ROOT, "systems", f"{cfg['system']}.py"),
                       f"portbench_system_{cfg['system']}")
-    return mod.build(sc, cfg, device)
+    if group is None or group.world == 1:
+        return mod.build(sc, cfg, device)
+    return mod.build(sc, cfg, device, group)
+
+
+def profiler_warm(dev):
+    """A profiler session a call (``tracer()``), after the profiler's own
+    first-use costs are paid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # one session a traced chunk: its records are read at its end
+    warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts):
+        torch.ones(8, device=dev).sum().item()
+    return lambda: profile(activities=acts)
+
+
+def set_up(cfg: dict, mix: dict, seed: int, trace_on: bool, dev, ranks,
+           lap=lambda name: None, wrap=None):
+    """The set-up every rank makes, in this order: the inputs, its share
+    of the system, the warm calls, the profiler.  ``lap(name)`` marks
+    each stage's end on rank 0's clock.  Returns (the scene, the spawn's
+    host arrays and device tensors, the system, its spawn state, the
+    tracer: a profiler session a call, or None untraced)."""
+    sc, sp, spawn_t = build_inputs(cfg, seed, dev)
+    lap("inputs")
+    system = load_system(cfg, sc, dev, ranks)
+    if wrap is not None:
+        system = wrap(system)
+    spawn_state = system.state(**spawn_t)
+    lap("program")
+    for _ in range(mix["warm_chunks"]):
+        system.run(spawn_state, mix["chunk_steps"], with_stats=trace_on)
+    _sync(dev)
+    lap("warm")
+    tracer = profiler_warm(dev) if trace_on else None
+    return sc, sp, spawn_t, system, spawn_state, tracer
 
 
 def load_reference(cfg: dict, sc: dict, device, dtype=torch.float32):
@@ -193,11 +239,14 @@ def load_reference(cfg: dict, sc: dict, device, dtype=torch.float32):
 
 
 def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
-             device="cuda", wrap=None) -> dict:
+             device="cuda", wrap=None, ranks=None) -> dict:
     """One run: returns the result line (a dict) and prints its context
     and checks on stderr.  ``wrap(system)`` (tests) puts another system in
-    the program's place."""
+    the program's place (rank 0's).  ``ranks``: rank 0 of a group
+    (``ranks.join``), whose workers run ``follow``; by default one
+    rank."""
     w, cfg, mix, e2e, layers = spec
+    ranks = ranks or ranks_.Solo()
     dev = torch.device(device)
     chunk = mix["chunk_steps"]
     per, compare, traced = chunk_plan(mix, seed, trace_on)
@@ -206,28 +255,15 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
 
     # ---------------------------------------------------------- set-up
     laps = [("imports", time.perf_counter())]
-    sc, sp, spawn_t = build_inputs(cfg, seed, dev)
+    sc, sp, spawn_t, system, spawn_state, tracer = set_up(
+        cfg, mix, seed, trace_on, dev, ranks,
+        lambda name: laps.append((name, time.perf_counter())), wrap)
     n_real = sp["n_real"]
-    laps.append(("inputs", time.perf_counter()))
-    system = load_system(cfg, sc, dev)
-    if wrap is not None:
-        system = wrap(system)
-    spawn_state = system.state(**spawn_t)
-    laps.append(("program", time.perf_counter()))
-    for _ in range(mix["warm_chunks"]):
-        system.run(spawn_state, chunk, with_stats=trace_on)
-    _sync(dev)
-    laps.append(("warm", time.perf_counter()))
-    if trace_on:
-        from torch.profiler import ProfilerActivity, profile
-
-        # one session a traced chunk: its records are read at its end
-        warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts):  # the profiler's own first-use costs
-            torch.ones(8, device=dev).sum().item()
     keeper = Keeper(spawn_t["pos"].shape[1], 2 * (len(compare) + len(traced)) + 2, dev)
     laps.append(("profiler, buffers", time.perf_counter()))
+    if ranks.world > 1:  # every rank has finished its warm call
+        ranks.join(ranks_.SETUP_WAIT_S)
+        laps.append(("the other ranks", time.perf_counter()))
     setup_s = laps[-1][1] - t0
     marks = [t0] + [t for _, t in laps]
     log("[portbench] set-up laps: " + ", ".join(
@@ -242,13 +278,15 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
     overflow, reads0 = [], system.host_reads()
     state, idx, calls, steps = spawn_state, 0, 0, 0
     call_s, episode_s = [], []
-    kept_in[0] = keeper.take(state)
+    kept_in[0] = keeper.take(ranks.whole(system, state))
     _sync(dev)
     start = last = mark = time.perf_counter()
     while True:
-        with profile(activities=acts) if idx in pending else contextlib.nullcontext() as prof:
+        ranks.run(idx if idx in pending else -1)
+        with tracer() if idx in pending else contextlib.nullcontext() as prof:
             out, ovf = system.run(state, chunk, with_stats=trace_on)
             _sync(dev)
+        ranks.join()
         now = time.perf_counter()
         call_s.append(now - last)
         calls += 1
@@ -257,32 +295,33 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
             overflow.extend(ovf)
         if prof is not None:
             s = trace.record(prof, chunk)
-            if s.device or dev.type != "cuda":
+            if ranks.all(bool(s.device) or dev.type != "cuda"):
                 sessions[idx] = s
                 pending.discard(idx)
             else:
                 log(f"[portbench] chunk {idx}: the profiler recorded no device "
-                    "time; traced again in the next episode")
+                    "time on some rank; traced again in the next episode")
         if idx in want and idx in kept_in and idx not in kept_out and idx not in pending:
-            kept_out[idx] = keeper.take(out)
+            kept_out[idx] = keeper.take(ranks.whole(system, out))
         idx = (idx + 1) % per
         if idx:
             state = out
         else:  # the reference's reset at the episode's end
             episode_s.append(now - mark)
             mark = now
-            state = system.state(pos=spawn_state.pos, vel=spawn_state.vel,
-                                 collisions=out.collisions, radius=spawn_state.radius,
-                                 restitution=spawn_state.restitution)
+            state = ranks.reset(system, spawn_state, out)
         if idx in pending or (idx in want and idx not in kept_in):
-            kept_in[idx] = keeper.take(state)
+            kept_in[idx] = keeper.take(ranks.whole(system, state))
         _sync(dev)
         last = time.perf_counter()
         if idx == 0 and now - start >= seconds and want <= kept_out.keys():
             break
     window_s = now - start
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    peaks, rank_counters, rank_sessions = ranks.report(*_readings(system, dev), sessions)
     host_reads = system.host_reads() - reads0
+    if ranks.world > 1:
+        log(f"[portbench] peak device memory by rank {peaks} B")
+    peak = max(peaks)
     log(f"[portbench] window: {calls} calls, {steps} steps in {window_s:.6f} s; "
         f"peak device memory {peak} B; host reads {host_reads}; whole episodes "
         f"{[round(e, 4) for e in episode_s]} s; calls {min(call_s):.4f} / "
@@ -301,6 +340,8 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
         steps=steps, seconds=window_s, setup_s=setup_s, host_reads=host_reads,
         overflow=overflow,
         sessions=[sessions[i] for i in sorted(sessions)], system=system,
+        rank_sessions=[[r[i] for i in sorted(r)] for r in rank_sessions],
+        rank_counters=rank_counters,
         kept_out=kept_out, values={}, log=log,
         state_of=lambda h: system.state(
             **{k: h[k].to(dev) for k in STATE_KEYS}, radius=spawn_t["radius"],
@@ -312,6 +353,7 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
     ctx.system = None
     system.close()
     del system, state, out, spawn_state
+    ranks.stop()
 
     # ------------------------------------------------ the reference's check
     t_ref = time.perf_counter()
@@ -351,20 +393,62 @@ def run_cell(spec, seed: int, seconds: float, trace_on: bool, *, t0: float,
         else:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     line = {"correct": bool(correct), "attempted": calls, "failed": int(failed),
-            "metrics": metrics, "device": device_info(dev, peak, w["chips"])}
+            "metrics": metrics, "device": device_info(dev, peaks, w["chips"])}
     if trace_on:
-        bw = [trace.busy_window_us(s) for s in ctx.sessions]
-        line["device"]["busy_s"] = sum(b for b, _ in bw) / 1e6
-        line["device"]["window_s"] = sum(x for _, x in bw) / 1e6
-        line["breakdown"] = {"device_ops": trace.top_device_ops(ctx.sessions),
-                             "idle_gaps": trace.idle_gaps(ctx.sessions)}
+        # each device's mean over the ranks: busy and traced seconds, and
+        # the breakdown's seconds
+        k = len(ctx.rank_sessions)
+        bw = [[trace.busy_window_us(s) for s in r] for r in ctx.rank_sessions]
+        if k > 1:
+            log("[portbench] idle share of the traced chunks by rank: " + ", ".join(
+                f"{roofline.idle_pct(sum(b for b, _ in x), sum(v for _, v in x))}"
+                for x in bw))
+        every = [s for r in ctx.rank_sessions for s in r]
+        line["device"]["busy_s"] = sum(b for x in bw for b, _ in x) / 1e6 / k
+        line["device"]["window_s"] = sum(v for x in bw for _, v in x) / 1e6 / k
+        line["breakdown"] = {"device_ops": trace.top_device_ops(every, devices=k),
+                             "idle_gaps": trace.idle_gaps(every, devices=k)}
     line["checks"] = checks
     return line
 
 
-def device_info(dev, peak: int, chips: int) -> dict:
+def device_info(dev, peaks: list, chips: int) -> dict:
+    """The line's ``device``: the fullest device's peak, and with more
+    than one rank each rank's beside it."""
     if dev.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": chips,
-            "memory_peak_bytes": int(peak)}
+        info = {"platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": 0}
+    else:
+        info = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": chips,
+                "memory_peak_bytes": int(max(peaks))}
+    if len(peaks) > 1:
+        info["count"] = len(peaks)
+        info["memory_peak_bytes_by_rank"] = [int(p) for p in peaks]
+    return info
 
+
+def follow(spec, seed: int, trace_on: bool, device, ranks) -> None:
+    """A worker rank's part of a run (``workers.worker``): the set-up that
+    rank 0 makes (``set_up``), then what rank 0 orders until it orders the
+    end (``ranks.Group.orders``)."""
+    _, cfg, mix, _, _ = spec
+    dev = torch.device(device)
+    _, _, _, system, spawn_state, tracer = set_up(cfg, mix, seed, trace_on, dev, ranks)
+    ranks.join()
+    state, sessions = spawn_state, {}
+    for order, arg in ranks.orders():
+        if order == ranks_.RUN:
+            with tracer() if arg >= 0 else contextlib.nullcontext() as prof:
+                state, _ = system.run(state, mix["chunk_steps"], with_stats=trace_on)
+                _sync(dev)
+            ranks.join()
+            if prof is not None:
+                s = trace.record(prof, mix["chunk_steps"])
+                if ranks.all(bool(s.device) or dev.type != "cuda"):
+                    sessions[arg] = s
+        elif order == ranks_.WHOLE:
+            ranks.whole(system, state)
+        elif order == ranks_.RESET:
+            state = ranks.reset(system, spawn_state, state)
+        elif order == ranks_.REPORT:
+            ranks.report(*_readings(system, dev), sessions)
+    system.close()

@@ -4,7 +4,8 @@ bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger,
 step by step, from the work the reference counts on the same states)
 over the device time of every B1 kernel in those steps (the main and
 phase-1 launches of ``window_collide_kernel`` with their split kernels,
-and phase 2's worklist scan and collide kernels), torch.profiler."""
+and phase 2's worklist scan and collide kernels), summed over every
+card (``trace.worked``), torch.profiler."""
 
 from portbench import roofline, trace
 
@@ -13,8 +14,9 @@ KERNELS = ("window_collide_kernel", "fill_keys_kernel", "finish_kernel",
 
 
 def read(ctx):
-    sessions = [s for s in ctx.sessions if s.device and len(s.work) == s.steps]
-    if not sessions:
+    chunks = trace.worked(ctx.rank_sessions)
+    if not chunks:
         return None
-    bound = sum(roofline.b1_bound_s(w) for s in sessions for w in s.work)
-    return roofline.share_pct(bound, trace.kernel_us(sessions, KERNELS) / 1e6)
+    bound = sum(roofline.b1_bound_s(w) for work, _ in chunks for w in work)
+    every = [s for _, on_ranks in chunks for s in on_ranks]
+    return roofline.share_pct(bound, trace.kernel_us(every, KERNELS) / 1e6)

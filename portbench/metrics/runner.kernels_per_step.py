@@ -1,6 +1,6 @@
 """runner.kernels_per_step (kernels/step): kernel records on the card in
-the traced chunks over the steps they hold (torch.profiler; copies and
-sets left out).  The profiler has lost a whole step's records before, so
+the traced chunks over the steps they hold, on every card (each card's
+mean; torch.profiler; copies and sets left out).  The profiler has lost a whole step's records before, so
 B2's launches (one a step) are counted against the steps run."""
 
 from portbench import trace
@@ -9,7 +9,7 @@ B2 = "cells_window_lookup_kernel"
 
 
 def read(ctx):
-    sessions = [s for s in ctx.sessions if s.device]
+    sessions = trace.traced(ctx.rank_sessions)
     if not sessions:
         return None
     steps = sum(s.steps for s in sessions)

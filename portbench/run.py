@@ -10,7 +10,10 @@ output: ``correct``, ``attempted`` (calls of the system in the window),
 (``--trace 0``: the cell's end-to-end metrics; ``--trace 1``: its
 per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and
 ``checks``.  Without a card, or with fewer cards than the cell asks for,
-it exits 2 and prints no result.  The program's bake cache is
+it exits 2 and prints no result.  A cell on more than one card runs one
+process a card: this one is rank 0 and prints the line, and starts the
+others (``workers.py``) before it imports torch, so that their imports
+and its own overlap.  The program's bake cache is
 ``portbench/.cache/bake`` (``PSYS_BAKE_CACHE``), the reference's
 ``portbench/.cache/reference_bake``; the kernels build into ``build/``.
 """
@@ -20,13 +23,15 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 
-import torch  # noqa: E402
+# no torch yet: a cell on several cards starts its workers first
+from portbench import workers as workers_  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def card_limit() -> str:
@@ -50,26 +55,43 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    from portbench import harness
+    os.environ["PSYS_BAKE_CACHE"] = os.path.join(REPO, "portbench", ".cache", "bake")
+    with open(os.path.join(REPO, "BENCHMARK.json"), encoding="utf-8") as f:
+        bench = json.load(f)
+    need = next((w["chips"] for w in bench["workloads"] if w["name"] == args.workload), 1)
+    # ranks 1 to need - 1 import alongside this process; every return
+    # below ends them
+    workers = workers_.Workers(need, bench, args.workload, os.path.join(REPO, "portbench"),
+                               args.seed, bool(args.trace), "cuda") if need > 1 else None
+    try:
+        import importlib.util
 
-    found = importlib.util.find_spec(harness.guard.PROGRAM)
-    if found is None or not os.path.abspath(found.origin).startswith(harness.REPO + os.sep):
-        harness.log(f"[portbench] the program {harness.guard.PROGRAM} is not in this "
-                    f"checkout ({harness.REPO}): found {found and found.origin}")
-        return 2
-    os.environ["PSYS_BAKE_CACHE"] = os.path.join(harness.CACHE, "bake")
-    bench = harness.load_bench()
-    spec = harness.cell(bench, args.workload)
-    need = spec[0]["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < need:
-        harness.log(f"[portbench] {args.workload} needs {need} CUDA device(s); this "
-                    f"machine has {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
-        return 2
-    bad = harness.guard.reference_imports_bad()
-    if bad:
-        harness.log(f"[portbench] the reference imports what it must not: {bad}")
-        return 2
-    line = harness.run_cell(spec, args.seed, args.seconds, bool(args.trace), t0=T0)
+        import torch
+
+        from portbench import harness, ranks
+
+        found = importlib.util.find_spec(harness.guard.PROGRAM)
+        if found is None or not os.path.abspath(found.origin).startswith(
+                harness.REPO + os.sep):
+            harness.log(f"[portbench] the program {harness.guard.PROGRAM} is not in this "
+                        f"checkout ({harness.REPO}): found {found and found.origin}")
+            return 2
+        spec = harness.cell(bench, args.workload)
+        if not torch.cuda.is_available() or torch.cuda.device_count() < need:
+            harness.log(f"[portbench] {args.workload} needs {need} CUDA device(s); this "
+                        f"machine has "
+                        f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+            return 2
+        bad = harness.guard.reference_imports_bad()
+        if bad:
+            harness.log(f"[portbench] the reference imports what it must not: {bad}")
+            return 2
+        group = ranks.join(workers, "cuda") if workers else None
+        line = harness.run_cell(spec, args.seed, args.seconds, bool(args.trace), t0=T0,
+                                ranks=group)
+    finally:
+        if workers:
+            workers.close()
     bad = harness.guard.loaded_forbidden()
     if bad:
         harness.log(f"[portbench] loaded in this process: {bad}")

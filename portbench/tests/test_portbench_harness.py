@@ -1,7 +1,11 @@
 """The harness on the CPU: it finds cells, mixes, configurations and
 metrics by name; a run whose timed path is broken reads ``correct``
-false; its arithmetic on synthetic inputs; the command refuses a machine
-without a card; ``BENCHMARK.json`` keeps the contract's form."""
+false; its arithmetic on synthetic inputs; the readers of the sorted
+runner's telemetry (host stamps on the CPU): the replay gap on synthetic
+records, every reader within its range in a traced hybrid run, and
+nothing reported by a program without ``runner.telemetry``; the command
+refuses a machine without a card; ``BENCHMARK.json`` keeps the
+contract's form."""
 
 import json
 import os
@@ -10,11 +14,13 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
-from portbench import harness, roofline, trace
+from portbench import harness, roofline, roofline_p2p, trace
 
 from conftest import REPO, small_bench
 
@@ -222,21 +228,146 @@ def test_trace_arithmetic_on_a_synthetic_session():
     gaps = dict(trace.idle_gaps([s]))
     assert gaps == {"cudaStreamSynchronize": 15.0 / 1e6, "aten::item": 15.0 / 1e6}
     assert not trace.is_kernel("Memset (Device)") and trace.is_kernel("finish_kernel")
+    # two ranks' sessions: each device's mean
+    assert trace.top_device_ops([s, s], devices=2) == trace.top_device_ops([s])
+    assert trace.idle_gaps([s, s], devices=2) == trace.idle_gaps([s])
 
 
-def test_traced_run_reports_its_per_layer_metrics(tmp_path):
-    """On the CPU the profiler records no device time: the readers that
-    need it report nothing, the counters report."""
+def _chunk(scale: float, work: list) -> trace.Session:
+    """One traced step on one card, its kernels one after another, each
+    ``scale`` times as long as on a card at 1."""
+    names = ("window_collide_kernel", "cells_window_lookup_kernel",
+             "worklist_collide_kernel", "p2p_window_kernel")
+    ends = np.cumsum([10.0, 2.0, 3.0, 5.0]) * scale
+    device = [(n, float(a), float(b)) for n, a, b in zip(names, [0.0, *ends[:-1]], ends)]
+    return trace.Session(steps=1, device=device, host=[("cudaGraphLaunch", 0.0, 30.0)],
+                         work=work)
+
+
+@pytest.mark.parametrize("name", ["device.idle_share", "runner.kernels_per_step",
+                                  "rescue.worklist_ms_per_step", "b1_window_collide_roofline",
+                                  "b2_cells_lookup_roofline", "b3_p2p_window_roofline"])
+def test_device_time_readers_read_every_rank(name):
+    """One rank: the reader reads rank 0's sessions, as before there were
+    ranks.  Two ranks, the second card's kernels twice as long: the idle
+    share is the line's ``busy_s`` over ``window_s``; kernels and time a
+    step are each card's mean; a roofline holds each chunk's work,
+    counted once on the whole state (rank 0's session), against the
+    kernels' time summed over both cards."""
+    reader = harness.load_module(os.path.join(harness.ROOT, "metrics", f"{name}.py"), name)
+    work = [{"lanes": 4096, "candidates": 50_000, "rows": 300, "keys": 700,
+             "offsets": 900, "columns": 2000}]
+    r0 = [_chunk(1.0, list(work)), _chunk(1.0, list(work))]
+    r1 = [_chunk(2.0, []), _chunk(2.0, [])]
+
+    def read(rank_sessions):
+        return reader.read(SimpleNamespace(rank_sessions=rank_sessions, sessions=r0,
+                                           log=harness.log))
+
+    one, two = read([r0]), read([r0, r1])
+    if name == "device.idle_share":
+        bw = [trace.busy_window_us(s) for s in r0 + r1]
+        assert two == roofline.idle_pct(sum(b for b, _ in bw), sum(w for _, w in bw))
+        assert one == pytest.approx(100.0 / 3)  # 20 busy of 30
+    elif name == "runner.kernels_per_step":
+        assert one == two == 4.0
+    elif name == "rescue.worklist_ms_per_step":
+        assert one == pytest.approx(0.003) and two == pytest.approx(1.5 * one)
+    else:
+        assert two == pytest.approx(one / 3)
+        # B1's time holds its worklist kernel's
+        kernel_s = {"b1_window_collide_roofline": 13e-6, "b2_cells_lookup_roofline": 2e-6,
+                    "b3_p2p_window_roofline": 5e-6}[name]
+        bound = (roofline_p2p.b3_bound_s if name.startswith("b3") else
+                 roofline.b2_bound_s if name.startswith("b2") else roofline.b1_bound_s)
+        assert one == pytest.approx(100.0 * bound(work[0]) / kernel_s)
+
+
+def test_device_info_gives_the_fullest_device_and_each_rank():
+    assert harness.device_info(torch.device("cpu"), [0], 1) == {
+        "platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": 0}
+    info = harness.device_info(torch.device("cpu"), [0, 0, 0, 0], 4)
+    assert info["count"] == 4 and info["memory_peak_bytes_by_rank"] == [0, 0, 0, 0]
+
+
+# the runner's telemetry readers and, on the CPU, the range each reads in
+TELEMETRY = {"runner.step_ms_p99": (0.0, 1e4), "runner.order_ms_per_step": (0.0, 1e3),
+             "runner.replay_gap_ms_per_step": (0.0, 1e3),
+             "spatial.main_ms_per_step": (0.0, 1e3), "rescue.device_ms_per_step": (0.0, 1e4),
+             "screenspace.stage_device_ms_per_step": (0.0, 1e3),
+             "screenspace.step_undecided_share": (0.0, 100.0),
+             "rescue.worklist_lanes_per_step": (0.0, 1152.0),
+             "setup.tables_s": (0.0, 60.0), "setup.capture_s": (0.0, 60.0)}
+
+
+@pytest.mark.parametrize("readers", ["counters", "telemetry"])
+def test_traced_run_reports_its_per_layer_metrics(tmp_path, readers):
+    """A traced hybrid run.  ``counters``: on the CPU the profiler records
+    no device time, so the readers that need it report nothing, the
+    counters report.  ``telemetry``: the stamp and counter readers report,
+    each within its range; a step's period is at least the sum of its
+    stages' means."""
     root = str(tmp_path)
     line = _run(root, small_bench(root, episode_steps=300, traced=(5, 14)), HYBRID,
                 trace_on=True, seconds=0.5)
     assert line["correct"]
+    if readers == "counters":
+        got = set(line["metrics"])
+        assert {"runner.host_reads_per_step", "rescue.overflow_lanes_per_step",
+                "screenspace.undecided_share"} <= got
+        assert not got & {"particle_steps_per_s", "setup_s", "device.idle_share"}
+        assert 0.0 < line["metrics"]["screenspace.undecided_share"]["value"] < 100.0
+        assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+        return
+    for name, (lo, hi) in TELEMETRY.items():
+        assert lo < line["metrics"][name]["value"] < hi, name
+    v = {k: line["metrics"][k]["value"] for k in TELEMETRY}
+    stages = (v["screenspace.stage_device_ms_per_step"] + v["runner.order_ms_per_step"]
+              + v["spatial.main_ms_per_step"] + v["rescue.device_ms_per_step"])
+    assert stages < v["runner.step_ms_p99"]
+
+
+def test_replay_gap_counts_the_idle_inside_the_step_spans():
+    """The gaps between one step's end stamp and the next's start, within
+    the untraced window calls (the warm call and the traced positions
+    left out), averaged; no call with two steps, nothing."""
+    reader = harness.load_module(
+        os.path.join(harness.ROOT, "metrics", "runner.replay_gap_ms_per_step.py"), "gap")
+    mix = {"warm_chunks": 1, "episode_steps": 8, "chunk_steps": 2, "traced_chunks": [1]}
+    recs = [SimpleNamespace(call=c, gap_ms=np.array(g)) for c, g in
+            ((0, [9.0]), (1, [0.1, 0.3]), (2, [7.0]), (5, [0.2]), (7, []))]
+    ctx = SimpleNamespace(mix=mix, values={"telemetry": (recs, {})})
+    assert reader.read(ctx) == pytest.approx(0.6 / 3)
+    ctx.values["telemetry"] = (recs[4:], {})
+    assert reader.read(ctx) is None
+
+
+def test_telemetry_readers_report_nothing_without_the_telemetry(tmp_path):
+    """A program without ``runner.telemetry`` (the parent of the readers),
+    in a traced spatial run: every telemetry reader reports nothing, and
+    the spatial cell has no screen-space stage to read."""
+    root = str(tmp_path)
+
+    class _Without:
+        def __init__(self, inner):
+            self.inner = inner
+            self.runner = type("Runner", (), {})()
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    bench = small_bench(root, episode_steps=60, traced=(1,))
+    for m in bench["per_layer"]:
+        if m["name"].startswith("screenspace."):
+            m["workloads"].append(SPATIAL)
+    line = _run(root, bench, SPATIAL, trace_on=True, seconds=0.1, wrap=_Without)
+    assert line["correct"]
+    assert not set(line["metrics"]) & set(TELEMETRY)
+    line = _run(root, bench, SPATIAL, trace_on=True, seconds=0.1)
     got = set(line["metrics"])
-    assert {"runner.host_reads_per_step", "rescue.overflow_lanes_per_step",
-            "screenspace.undecided_share"} <= got
-    assert not got & {"particle_steps_per_s", "setup_s", "device.idle_share"}
-    assert 0.0 < line["metrics"]["screenspace.undecided_share"]["value"] < 100.0
-    assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert {"runner.step_ms_p99", "rescue.worklist_lanes_per_step", "setup.tables_s"} <= got
+    assert not got & {"screenspace.stage_device_ms_per_step",
+                      "screenspace.step_undecided_share"}
 
 
 def test_the_command_refuses_a_machine_without_a_card():

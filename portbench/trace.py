@@ -53,6 +53,23 @@ def busy_window_us(s: Session) -> tuple:
     return busy, max(b for _, _, b in every) - min(a for _, a, _ in every)
 
 
+def traced(rank_sessions) -> list:
+    """Every rank's sessions that recorded device time, in one list
+    (``ctx.rank_sessions``: each rank's by chunk): a reader of device time
+    over them reads each card's mean a step."""
+    return [s for r in rank_sessions for s in r if s.device]
+
+
+def worked(rank_sessions) -> list:
+    """[(a traced chunk's work, its session on every rank)] for the chunks
+    whose every step the reference counted: the work, counted on the
+    whole state, is on rank 0's session, and the chunk's index in each
+    rank's list is the same.  A share of a roofline is the work's least
+    time on one card over the kernels' time summed over every card."""
+    return [(s.work, [r[j] for r in rank_sessions])
+            for j, s in enumerate(rank_sessions[0]) if s.device and len(s.work) == s.steps]
+
+
 def is_kernel(name: str) -> bool:
     return not name.startswith(("Memcpy", "Memset"))
 
@@ -74,20 +91,26 @@ def short(name: str) -> str:
     return name.split("(")[0].split("<")[0][-60:]
 
 
-def top_device_ops(sessions, k: int = 10) -> list:
+def _top(tot: dict, k: int, devices: int) -> list:
+    """The ``k`` largest of ``tot``, each over ``devices``."""
+    return [[n, v / devices] for n, v in sorted(tot.items(), key=lambda kv: -kv[1])[:k]]
+
+
+def top_device_ops(sessions, k: int = 10, devices: int = 1) -> list:
     """[[name, seconds], ...]: the device records that took most time,
-    summed by name."""
+    summed by name (over ``devices``: the sessions of that many ranks)."""
     tot: dict = {}
     for s in sessions:
         for n, a, b in s.device:
             tot[short(n)] = tot.get(short(n), 0.0) + (b - a) / 1e6
-    return [[n, v] for n, v in sorted(tot.items(), key=lambda kv: -kv[1])[:k]]
+    return _top(tot, k, devices)
 
 
-def idle_gaps(sessions, k: int = 10) -> list:
+def idle_gaps(sessions, k: int = 10, devices: int = 1) -> list:
     """[[host activity, seconds], ...]: the device's idle gaps inside each
     session, summed by the innermost host record running at each gap's
-    middle ("no host record" where none was)."""
+    middle ("no host record" where none was); over ``devices`` as
+    ``top_device_ops``."""
     tot: dict = {}
     for s in sessions:
         merged = union((a, b) for _, a, b in s.device)
@@ -107,4 +130,4 @@ def idle_gaps(sessions, k: int = 10) -> list:
             for i, (p, f) in enumerate(zip(pick, found)):
                 label = names[p] if f else "no host record"
                 tot[label] = tot.get(label, 0.0) + (s1[c + i] - e0[c + i]) / 1e6
-    return [[n, v] for n, v in sorted(tot.items(), key=lambda kv: -kv[1])[:k]]
+    return _top(tot, k, devices)
