@@ -2177,13 +2177,13 @@ def drive_first_ranks(torch, card: str, workdir: str, snap650, ovf_single) -> di
     print(f"[{card}] phase 9, first {FIRST_CONFIG5} of {world} ranks over {backend}: "
           f"config 5, {members[0]['particles']} particles, {CONFIG5_STEPS} timed "
           f"steps: alive after {members[0]['active_particles']}; overflow halo "
-          f"{members[0]['halo_overflow_last_step']}, migrate "
-          f"{members[0]['migrate_overflow_last_step']}, cell "
-          f"{members[0]['cell_overflow_last_step']}; ms/step "
+          f"{members[0]['halo_overflow']}, migrate "
+          f"{members[0]['migrate_overflow']}, cell "
+          f"{members[0]['cell_overflow']}; ms/step "
           + ", ".join(f"{1000.0 / c['steps_per_sec']:.3f}" for c in members)
           + "; the other ranks: " + ", ".join(json.dumps(c) for c in rest))
     if any(c.get("sat_out") or c["active_particles"] != c["particles"]
-           or c["halo_overflow_last_step"] or c["migrate_overflow_last_step"]
+           or c["halo_overflow"] or c["migrate_overflow"]
            or c["shards"] != FIRST_CONFIG5 or c["backend"] != backend
            for c in members):
         raise RuntimeError("config 5 on the first ranks lost particles, overflowed "
@@ -2286,13 +2286,13 @@ def drive_mesh(torch, card: str, snap600, snap650, ovf_single, single_ms) -> dic
         c5 = [r["config5"] for r in recs]
         print(f"[{card}] phase 9, {tag}: config 5, {c5[0]['particles']} particles, "
               f"{CONFIG5_STEPS} timed steps: alive after {c5[0]['active_particles']}; "
-              f"overflow halo {c5[0]['halo_overflow_last_step']}, migrate "
-              f"{c5[0]['migrate_overflow_last_step']}, cell "
-              f"{c5[0]['cell_overflow_last_step']}; ms/step "
+              f"overflow halo {c5[0]['halo_overflow']}, migrate "
+              f"{c5[0]['migrate_overflow']}, cell "
+              f"{c5[0]['cell_overflow']}; ms/step "
               + ", ".join(f"{1000.0 / c['steps_per_sec']:.3f}" for c in c5)
               + f"{note}")
         if any(c["active_particles"] != c["particles"]
-               or c["halo_overflow_last_step"] or c["migrate_overflow_last_step"]
+               or c["halo_overflow"] or c["migrate_overflow"]
                or c["backend"] != backend for c in c5):
             raise RuntimeError(f"{tag}: config 5 lost particles or overflowed")
     t0 = time.perf_counter()

@@ -7,7 +7,7 @@ metrics dict.
   3. hybrid (screen-space + exact fallback), 262k on the bunny scene
   4. 1M particles, on-device grid build + narrow phase + integrate
   5. heterogeneous radii and restitution, the box split into slabs over
-     the ranks of a process group with a halo exchange (500k per rank)
+     the ranks of a process group with a halo exchange (1M per rank)
 """
 
 from __future__ import annotations
@@ -207,23 +207,36 @@ def _process_group(device_type: str):
 def config_5(steps: int = 100, n: Optional[int] = None,
              n_shards: Optional[int] = None, device="cuda") -> dict:
     """Heterogeneous radii/restitution, the box split into one slab per
-    rank with a halo exchange (parallel/domain.py): 500k particles per
-    rank, a box 40 units wide per rank.  The ranks are the first
-    ``n_shards`` of the process group's (``torchrun
+    rank with a halo exchange and migration, on the domain episode runner
+    (``parallel/domain.py``; B3's cells route for the local contacts):
+    1,000,000 particles per rank in config 4's box (160 x 80 x 160) once
+    per rank, stacked along x; radii 0.4 x U(0.7, 1.3), restitution
+    U(0.2, 0.6), cells 1.04 = 2 x the largest radius.  The ranks are the
+    first ``n_shards`` of the process group's (``torchrun
     --nproc-per-node=N``; all of them by default), as the JAX package
     meshes its first ``n_shards`` devices; run alone, a group of one.
+
+    The JAX package's config 5 puts 500,000 particles a rank in a slab of
+    40 x 80 x 40 = 128,000 units^3.  The spheres' mean volume is
+    4/3 pi 0.4^3 E[u^3] = 0.268 x 1.09 = 0.292 units^3 (u ~ U(0.7, 1.3)),
+    so they add up to 146,000 units^3: 1.14 times the slab's volume and
+    2.3 times the upper half they are dropped into, a box that cannot
+    settle.  Here a rank's spheres fill 14.3% of its slab (config 4's
+    equal spheres 13.1%).
+
     Every rank of the group calls it.  Every rank of the mesh returns
     the same dict; ``active_particles`` counts the particles alive after
-    the last step, over all of them (conservation), and ``backend`` is
-    the mesh's.  A rank outside the mesh builds nothing and returns
-    ``{"config": 5, "shards": ..., "rank": ..., "sat_out": True}``."""
+    the last step, over all of them (conservation), the overflows are the
+    runner's (halo, migration, cell) over every step run, summed over the
+    ranks, and ``backend`` is the mesh's.  A rank outside the mesh builds
+    nothing and returns ``{"config": 5, "shards": ..., "rank": ...,
+    "sat_out": True}``."""
     import torch.distributed as dist
 
     from particlesystemhybridcollisiondetection_tpu_torch.parallel import (
         data_parallel as dp,
     )
     from particlesystemhybridcollisiondetection_tpu_torch.parallel import domain as dom
-    from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import fence
 
     dev = resolve_device(device)
     with _process_group(dev.type):
@@ -235,9 +248,8 @@ def config_5(steps: int = 100, n: Optional[int] = None,
         if mesh is None:
             return {"config": 5, "shards": shards, "rank": dist.get_rank(),
                     "sat_out": True}
-        n = n or 500_000 * shards
-        side = 40.0 * shards
-        box_lo, box_hi = (0.0, 0.0, 0.0), (side, 80.0, 40.0)
+        n = n or 1_000_000 * shards
+        box_lo, box_hi = (0.0, 0.0, 0.0), (160.0 * shards, 80.0, 160.0)
         cfg = SimConfig(particle_radius=0.4, dt=0.005, bounciness=0.3)
         cap = int(np.ceil(n / shards * 2 / 128)) * 128
         dcfg = dom.DomainConfig(
@@ -248,30 +260,31 @@ def config_5(steps: int = 100, n: Optional[int] = None,
             cell_size=2 * 0.4 * 1.3,
         )
         # every rank draws the same global state from the seed and keeps
-        # its own slab's block
+        # its own slab's slots
         state = _box_state(n, box_lo, box_hi, 0.4, 0.3, hetero=True,
                            device="cpu")
-        st = dom.shard_domain_state(dom.distribute(state, dcfg), mesh)
-        step = dom.make_domain_step(dcfg, cfg, mesh)
-
-        st, stats = step(st)
-        fence(st.pos)
+        shard = dom.shard_spawn(state, dcfg, mesh)
+        runner = dom.make_domain_episode_runner(dcfg, cfg, mesh)
+        # the eager first step and, on NCCL, the capture
+        shard = runner(shard, 2)
+        fence(shard.state.pos)
         t0 = time.perf_counter()
-        for _ in range(steps):
-            st, stats = step(st)
-        fence(st.pos)
+        shard = runner(shard, steps)
+        fence(shard.state.pos)
         dt = time.perf_counter() - t0
-        alive = dp.sum_ints(int(active_mask(st).sum()), mesh)
+        alive = dp.sum_ints(int(active_mask(shard.state).sum()), mesh)
+        halo, migrate, cell = runner.drops.tolist()
         return {
             "config": 5,
             "particles": n,
             "shards": shards,
             "backend": dist.get_backend(mesh.get_group()),
+            "graphed": runner.graphed,
             "steps_per_sec": steps / dt,
             "particle_steps_per_sec": steps / dt * n,
-            "halo_overflow_last_step": int(stats[0]),
-            "migrate_overflow_last_step": int(stats[1]),
-            "cell_overflow_last_step": int(stats[2]),
+            "halo_overflow": halo,
+            "migrate_overflow": migrate,
+            "cell_overflow": cell,
             "active_particles": alive,
         }
 

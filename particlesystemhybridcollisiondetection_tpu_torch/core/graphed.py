@@ -1,7 +1,8 @@
 """Captured CUDA graphs of the episode runners' steps.
 
-  * ``GraphedRunner``: the core of the sorted runner and the p2p runner
-    (``core/step.py``: ``SortedEpisodeRunner``, ``P2PEpisodeRunner``):
+  * ``GraphedRunner``: the core of the sorted runner, the p2p runner
+    (``core/step.py``: ``SortedEpisodeRunner``, ``P2PEpisodeRunner``) and
+    the domain runner (``parallel/domain.py::DomainEpisodeRunner``):
     carried buffers per particle count, the first step eager, the
     capture, the replays, the telemetry ring and the order restored once
     a call.
@@ -24,10 +25,7 @@ from particlesystemhybridcollisiondetection_tpu_torch.core.telemetry import (
 )
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_kernel as tk
 from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda.build import COUNTERS
-from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import (
-    Stopwatch,
-    fence,
-)
+from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import Stopwatch
 
 
 class HostSyncs:
@@ -129,10 +127,11 @@ class GraphedRunner:
 
     A runner gives ``_new_carry(n)`` (buffers with ``rows8``, f32[8, n]:
     pos3 vel3 radius restitution, and ``aux``, i32[2, n]: collisions and
-    original ids), ``_load(state)`` (the state into the carry of its
-    count, ids aside), ``_step(b, branch, ring)`` (one step in place on
-    the carry) and, with more than one branch, ``BRANCHES`` and
-    ``_branch``."""
+    original ids; the domain runner, which has a ``__call__`` of its own,
+    carries its slots otherwise), ``_load(state)`` (the state into the
+    carry of its count, ids aside), ``_step(b, branch, ring)`` (one step
+    in place on the carry) and, with more than one branch, ``BRANCHES``
+    and ``_branch``."""
 
     #: the branches a step can take, each a graph of its own
     BRANCHES = (None,)
@@ -205,7 +204,8 @@ class GraphedRunner:
             else:
                 self._step(b, branch, ring)
                 self._warm.add(key)
-            fence(b.rows8)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             setup.lap("capture")
         if graphs is not None:
             _replay(graphs[branch], self.launches)

@@ -12,14 +12,21 @@ around each step's replay; the set-up laps.
     ``with_stats`` calls.
   * ``step_span``: the profiler span ``STEP_SPAN`` a stats step runs in.
 
-The stamps are the same for both runners; a runner leaves out those that
-its step has not (the p2p runner: ``screenspace``), and its stages are
-named by the stamp that ends them.  Sorted runner: ``order`` (Morton
-key, sort, permutes), ``main`` (plan, B2, B1's main launch), ``rescue``,
-``end``.  P2p runner: ``order`` (cell key, stable sort, CSR offsets, row
-gather and pad), ``main`` (B3's cells launch), ``rescue`` (the
-fallback's compaction and B3's worklist launch), ``end`` (walls,
-integration, write-back).
+The stamps are the same for every runner; a runner leaves out those that
+its step has not (the p2p runner: ``halo``, ``screenspace``,
+``integrate``), and its stages are named by the stamp that ends them.
+Sorted runner: ``order`` (Morton key, sort, permutes), ``main`` (plan,
+B2, B1's main launch), ``rescue``, ``end``.  P2p runner: ``order`` (cell
+key, stable sort, CSR offsets, row gather and pad), ``main`` (B3's cells
+launch), ``rescue`` (the fallback's compaction and B3's worklist
+launch), ``end`` (walls, integration, write-back).  Domain runner
+(``parallel/domain.py``): ``halo`` (the ghosts' pack and exchange),
+``order``, ``main`` and ``rescue`` as the p2p runner's over the rank's
+slots and the ghosts, ``integrate`` (the un-sort of the rank's own
+slots, walls, integration), ``end`` (the migrants' pack and exchange,
+the merge); its counters beside ``n_over`` and ``n_lanes``: the ghost
+lanes received, the migrants sent and the rank's drops (halo, migration
+and cell overflow).
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ from particlesystemhybridcollisiondetection_tpu_torch.ops.cuda import telemetry_
 from particlesystemhybridcollisiondetection_tpu_torch.utils.profiling import Stopwatch
 
 #: a step's stamps in order, then its counters: the columns of a ring row
-STAMPS = ("start", "screenspace", "order", "main", "rescue", "end")
-COUNTERS = ("n_over", "undecided", "n_lanes")
+STAMPS = ("start", "halo", "screenspace", "order", "main", "rescue", "integrate", "end")
+COUNTERS = ("n_over", "undecided", "n_lanes", "ghosts", "migrants", "drops")
 #: the ``with_stats`` calls whose records a runner keeps, the newest
 KEEP_CALLS = 1024
 #: the ``torch.profiler`` span around each step (the sorted runner's flag
@@ -59,7 +66,9 @@ class StepRing:
     writes nothing), the device step counter that selects the row, the
     hybrid's undecided accumulator, and ``lanes``, the lane count of the
     step's worklist launch as it is issued (set by the sorted steps'
-    ``_device_rescue`` and the p2p step's ``_p2p_device_fallback``)."""
+    ``_device_rescue`` and the p2p step's ``_p2p_device_fallback``).
+    ``count`` writes a step's counters after the end stamp's three
+    (``COUNTERS[3:]``) into its row."""
 
     def __init__(self, device, hybrid: bool, cap: int = 4096):
         self.ring = torch.full((cap, len(STAMPS) + len(COUNTERS)), -1,
@@ -68,6 +77,8 @@ class StepRing:
         self.undecided = (torch.zeros((), dtype=torch.int32, device=device)
                           if hybrid else None)
         self.lanes = None
+        self._extra = torch.arange(len(STAMPS) + 3, len(STAMPS) + len(COUNTERS),
+                                   dtype=torch.int64, device=device)
 
     @property
     def cap(self) -> int:
@@ -79,6 +90,14 @@ class StepRing:
     def count_undecided(self, undecided, x) -> None:
         """Add the step's undecided real lanes (``x``: a position row)."""
         tk.count_undecided(undecided, x, self.undecided)
+
+    def count(self, *values) -> None:
+        """Write the step's ``COUNTERS[3:]`` (device integer scalars, in
+        that order) into its row; before ``end``, which moves to the next
+        row."""
+        row = (self.step.long() % self.cap).expand(len(values))
+        self.ring.index_put_((row, self._extra[:len(values)]),
+                             torch.stack([v.to(torch.int64) for v in values]))
 
     def end(self, n_over) -> None:
         """The step's last stamp: with its counters, then the next row."""

@@ -354,9 +354,11 @@ def test_domain_step_matches_jax(tmp_path, world):
 
 @pytest.mark.parametrize("case", ["truncate", "exact", "pad", "none", "raw"])
 def test_pack_subset_matches_jax(case):
-    """``_pack_subset`` bit for bit against the JAX package's: capacity
-    below the count (overflow), equal to n, above n (index-0 padding,
-    sentinel fill), an empty mask, and ``fill_sentinel=False``."""
+    """``_pack_rows`` (the port's pack, on a state's slot rows) bit for
+    bit against the JAX package's ``_pack_subset``: capacity below the
+    count (overflow), equal to n, above n (index-0 padding, sentinel
+    fill), an empty mask, and no sentinel fill (``fill_sentinel=False``).
+    The id row of a sentinel slot is -1; a packed slot keeps its id."""
     import jax.numpy as jnp
 
     from particlesystemhybridcollisiondetection_tpu.core.state import (
@@ -377,15 +379,22 @@ def test_pack_subset_matches_jax(case):
                       "raw": (64, False)}[case]
     if case == "none":
         mask[:] = False
-    sub, of = dom._pack_subset(ParticleState(**{k: torch.from_numpy(v)
-                                                for k, v in d.items()}),
-                               torch.from_numpy(mask), capacity, fill)
+    ids = np.arange(n, dtype=np.int32)
+    rows = dom.state_rows(ParticleState(**{k: torch.from_numpy(v) for k, v in d.items()}),
+                          torch.from_numpy(ids))
+    packed, of = dom._pack_rows(rows, torch.from_numpy(mask), capacity,
+                                dom.sentinel_bits("cpu") if fill else None)
+    sub, sub_ids = dom.rows_state(packed)
     jsub, jof = jdom._pack_subset(JState(**{k: jnp.asarray(v) for k, v in d.items()}),
                                   jnp.asarray(mask), capacity, fill)
     assert int(of) == int(jof) == max(int(mask.sum()) - capacity, 0)
     for f in d:
         np.testing.assert_array_equal(getattr(sub, f).numpy(),
                                       np.asarray(getattr(jsub, f)), err_msg=f)
+    k = min(int(mask.sum()), capacity)
+    np.testing.assert_array_equal(sub_ids.numpy()[:k], np.nonzero(mask)[0][:k])
+    if fill:
+        assert (sub_ids.numpy()[k:] == -1).all()
 
 
 def test_distribute_and_shard_match_jax():
@@ -443,9 +452,9 @@ def test_distribute_and_shard_match_jax():
 
 def test_config_5_one_rank():
     """``config_5`` run alone makes (and removes) a group of one rank:
-    5,000 heterogeneous particles, 2 timed steps, every particle kept,
-    no overflow, the JAX package's keys plus the backend and the count
-    alive."""
+    5,000 heterogeneous particles on the domain runner, 2 timed steps,
+    every particle kept, no overflow over the steps run, the backend and
+    the count alive."""
     import torch.distributed as dist
 
     out = tconfigs.config_5(steps=2, n=5000, device="cpu")
@@ -453,9 +462,9 @@ def test_config_5_one_rank():
     assert out["config"] == 5 and out["particles"] == 5000
     assert out["shards"] == 1 and out["backend"] == "gloo"
     assert out["active_particles"] == 5000
-    assert out["halo_overflow_last_step"] == 0
-    assert out["migrate_overflow_last_step"] == 0
-    assert out["cell_overflow_last_step"] == 0
+    assert out["halo_overflow"] == 0
+    assert out["migrate_overflow"] == 0
+    assert out["cell_overflow"] == 0
     assert out["steps_per_sec"] > 0
     with pytest.raises(ValueError, match="n_shards"):
         tconfigs.config_5(steps=1, n=1000, n_shards=2, device="cpu")

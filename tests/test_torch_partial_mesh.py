@@ -268,8 +268,8 @@ def test_config_5_on_first_shards(partial, full):
         assert c.keys() == want.keys()
         assert c["shards"] == N_MESH and c["particles"] == 5000
         assert c["active_particles"] == 5000 and c["backend"] == "gloo"
-        for k in ("halo_overflow_last_step", "migrate_overflow_last_step",
-                  "cell_overflow_last_step"):
+        for k in ("halo_overflow", "migrate_overflow",
+                  "cell_overflow"):
             assert c[k] == want[k] == 0, k
 
 
